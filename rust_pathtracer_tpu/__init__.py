@@ -1,11 +1,12 @@
-"""rust_pathtracer_tpu — a TPU-native differentiable path tracer.
+"""rust_pathtracer_tpu — a differentiable wavefront path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 ArcticXWolf/rust-pathtracer (reference mounted at /root/reference):
 Ray-Tracing-in-One-Weekend style path tracing — spheres / axis-aligned
 rectangles / boxes / triangles / OBJ meshes, lambertian / metal /
 dielectric / emissive materials, solid / checker / perlin / image
-textures, thin-lens camera, BVH acceleration — rebuilt TPU-first:
+textures, thin-lens camera, BVH acceleration — rebuilt for an
+accelerator (an NVIDIA GPU):
 
 * scalar ``Vec3`` math          -> batched ``(..., 3)`` jnp arrays (vecmath)
 * recursive ``Ray::color``      -> iterative wavefront bounce loop (integrator)

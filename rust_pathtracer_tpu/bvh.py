@@ -4,9 +4,9 @@ The reference builds a pointer tree with a *random* split axis and a
 median object split (bvh.rs:65-103), traversed recursively with per-call
 t_max tightening (bvh.rs:106-126).  Random axes make the tree shape
 nondeterministic run-to-run; the traversal recursion does not map to a
-TPU vector unit.
+lockstep wavefront.
 
-TPU design (documented deviation; rendered results are identical up to
+Design (documented deviation; rendered results are identical up to
 FP ordering since leaf intersection is exact):
 
 * deterministic split: widest-extent axis of the centroid bounds,

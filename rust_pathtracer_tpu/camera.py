@@ -8,7 +8,7 @@ normalized — intersection ``t`` is measured in units of |direction|,
 and the shadow epsilon t_min=0.001 (ray.rs:25) inherits that meaning.
 We reproduce that exactly.
 
-TPU design: the camera is a small pytree of arrays so it jits cleanly,
+Design: the camera is a small pytree of arrays so it jits cleanly,
 shards as replicated state, and is differentiable (per-parameter
 gradients for lookfrom/fov/... flow through ``make_camera`` into
 ``camera_rays``).

@@ -2,7 +2,7 @@
 
 Replaces ``dyn Material`` virtual calls (material.rs:15-22) with a
 4-way masked select: every branch is computed for every lane (cheap on
-the VPU) and combined by material id.  Semantics match the reference
+the vector units) and combined by material id.  Semantics match the reference
 exactly:
 
 * lambertian — dir = normal + random-on-unit-sphere; degenerate
@@ -49,9 +49,7 @@ class ShadeInputs(NamedTuple):
 
     Computed ONCE per bounce (the same texture value serves emission
     and albedo — each material has a single texture, material.rs) from
-    either the material/texture tables (one-hot lookups; small scenes
-    and CPU) or the projected-sweep payload row (zero lookups; large
-    scenes on TPU, see ops/projected.py PAY_* layout).
+    the material/texture tables.
     """
 
     kind: jnp.ndarray   # i32 (R,) material kind
@@ -60,38 +58,26 @@ class ShadeInputs(NamedTuple):
     value: jnp.ndarray  # f32 (R, 3) texture value at the hit
 
 
-def shade_inputs(scene, hit: HitRecord, shade_row=None) -> ShadeInputs:
-    """Build ShadeInputs from tables, or from a payload ``shade_row``
-    (R, >=16) holding cols 16-31 of the projected payload."""
-    if shade_row is None:
-        mats = scene.materials
-        kind, tex, fuzz, ir = table.lookup(
-            hit.mat, mats.kind, mats.tex, mats.fuzz, mats.ir
+def shade_inputs(scene, hit: HitRecord) -> ShadeInputs:
+    """Build ShadeInputs from the material/texture tables."""
+    mats = scene.materials
+    kind, tex, fuzz, ir = table.lookup(
+        hit.mat, mats.kind, mats.tex, mats.fuzz, mats.ir
+    )
+    # dielectric-only scenes have no texture consumers (attenuation
+    # is fixed (1,1,1), material.rs:141) and may carry empty tables
+    needs_value = (
+        (MAT_LAMBERTIAN in scene.mat_types)
+        or (MAT_METAL in scene.mat_types)
+        or (MAT_LIGHT in scene.mat_types)
+    )
+    value = (
+        eval_texture(
+            scene.textures, tex, hit.u, hit.v, hit.point, scene.tex_types,
+            checker_depth=scene.checker_depth,
         )
-        # dielectric-only scenes have no texture consumers (attenuation
-        # is fixed (1,1,1), material.rs:141) and may carry empty tables
-        needs_value = (
-            (MAT_LAMBERTIAN in scene.mat_types)
-            or (MAT_METAL in scene.mat_types)
-            or (MAT_LIGHT in scene.mat_types)
-        )
-        value = (
-            eval_texture(
-                scene.textures, tex, hit.u, hit.v, hit.point, scene.tex_types,
-                checker_depth=scene.checker_depth,
-            )
-            if needs_value
-            else jnp.zeros_like(hit.point)
-        )
-        return ShadeInputs(kind, fuzz, ir, value)
-
-    from rust_pathtracer_tpu.textures import eval_texture_payload
-
-    kind = jnp.round(shade_row[:, 0]).astype(jnp.int32)
-    fuzz = shade_row[:, 1]
-    ir = shade_row[:, 2]
-    value = eval_texture_payload(
-        scene.textures, shade_row, hit.u, hit.v, hit.point, scene.tex_types
+        if needs_value
+        else jnp.zeros_like(hit.point)
     )
     return ShadeInputs(kind, fuzz, ir, value)
 

@@ -24,14 +24,27 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _SO_PATH = os.path.join(_CSRC, "libptnative.so")
 
 
+# The build ignores the caller's compiler environment.  A host that
+# exports CXX (and CC) for another gcc built, from a fresh checkout, a
+# library against that gcc's libstdc++, and the OBJ parser segfaulted
+# beside the interpreter's own libstdc++; the system g++ with the flags
+# below does not.  The Makefile stamps compiler and flags into
+# .build_flags, so a library built otherwise is rebuilt.
+_BUILD_VARS = ("CXX=g++", "CXXFLAGS=-O3 -fPIC -std=c++17 -Wall")
+_BUILD_ENV_DROP = ("CXX", "CXXFLAGS", "CPPFLAGS", "LDFLAGS", "LDLIBS",
+                   "MAKEFLAGS", "MFLAGS")
+
+
 def _try_build() -> bool:
+    env = {k: v for k, v in os.environ.items() if k not in _BUILD_ENV_DROP}
     try:
         subprocess.run(
-            ["make", "-s"],
+            ["make", "-s", *_BUILD_VARS],
             cwd=_CSRC,
             check=True,
             capture_output=True,
             timeout=180,
+            env=env,
         )
         return os.path.exists(_SO_PATH)
     except Exception:

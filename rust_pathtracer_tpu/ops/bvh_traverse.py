@@ -1,8 +1,8 @@
 """Stackless wavefront BVH traversal (threaded / skip-link layout).
 
 The reference traverses its pointer BVH recursively per ray
-(bvh.rs:106-126), tightening t_max with the left child's hit.  A TPU
-has no per-lane call stacks, so the whole wavefront walks the flattened
+(bvh.rs:106-126), tightening t_max with the left child's hit.  A
+vectorized wavefront has no per-lane call stacks, so it walks the flattened
 DFS tree in lockstep instead:
 
     node i interior:  AABB hit  -> next = i + 1 (first child, DFS)

@@ -1,35 +1,42 @@
-"""Fused Pallas bounce: search + hit record + shade + state update.
+"""Fused whole bounce: search + hit record + shade + state update.
 
-One ``pallas_call`` executes an ENTIRE wavefront bounce for small
-static scenes — the unrolled closest-hit sweep (ops/pallas_intersect
-v1), the hit record, the texture evaluation (solid / checker /
-perlin-marble), the emission + background banking, the 4-way material
-scatter, and the wavefront state commit — with zero intermediate HBM
-materialization between them.  This is the TPU rewrite of the
-reference's whole per-ray hot path: ``ray.rs:20-41`` (recursive
-color), ``material.rs:24-166`` (scatter/emit dispatch),
-``texture.rs:9-81`` (value), fused the way the recursion fuses on a
-CPU — except over 128-lane vectors instead of one ray.
+One function computes an ENTIRE wavefront bounce for small static
+scenes — the unrolled closest-hit sweep, the hit record, the texture
+evaluation (solid / checker / perlin-marble), the emission +
+background banking, the 4-way material scatter, and the wavefront
+state commit — left to XLA, which fuses it into a few loop fusions
+with no device-memory round trip between the stages.  This is the vectorized rewrite of the reference's whole per-ray
+hot path: ``ray.rs:20-41`` (recursive color), ``material.rs:24-166``
+(scatter/emit dispatch), ``texture.rs:9-81`` (value), fused the way
+the recursion fuses on a CPU — except over a block of lanes instead of
+one ray.
+
+The bounce math lives in ONE function, ``bounce_body``, written as
+plain per-lane ``jnp`` over (R,) component columns with the primitive
+kinds unrolled statically, and left to XLA's fuser.  The plain bounce
+and the residual-writing bounce (the forward of the differentiable
+step) trace the same body, so the diff-mode image is bitwise the
+nondiff render's.
 
 Division of labor per bounce:
 
 * XLA (outside): the RNG draws (bitwise ``jax.random`` threefry —
-  sphere/ball/coin planes enter as inputs), russian roulette, depth /
+  sphere/ball/coin uniforms enter as inputs), russian roulette, depth /
   occupancy / segments bookkeeping, and the loop carry itself.
-* kernel (here): everything between "rays in" and "scattered rays,
+* fused body (here): everything between "rays in" and "scattered rays,
   throughput, radiance, alive out".
 
 Routing: ``fused_bounce_ok(scene)`` — small static scene
 (``kinds_static``) whose shading is table-free in-register math:
 solid / checker-of-solids / perlin textures only (``shade_static``).
-Image textures or >128 prims fall back to the composed path.
+Image textures or >128 prims keep the composed path.
 
-Numerical contract (mirrors the v1 kernel's): hit masks and winning
-primitive indices are EXACT vs the jnp path; floats agree to a few
-ulp (fusion/FMA differences), so either path is bitwise-deterministic
-per run but they are not bitwise-identical to each other.  The
-material/texture formulas replicate materials.py / textures.py /
-perlin.py op-for-op (perlin via the shared ``*_planes`` core).
+Numerical contract: hit masks and winning primitive indices are EXACT
+vs the composed jnp path; floats agree to a few ulp (fusion/FMA
+differences), so either path is bitwise-deterministic per run but they
+are not bitwise-identical to each other.  The material/texture
+formulas replicate materials.py / textures.py / perlin.py op-for-op
+(perlin via the shared ``*_planes`` core).
 """
 
 from __future__ import annotations
@@ -40,21 +47,8 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from rust_pathtracer_tpu.ops.intersect import T_MISS, TRI_DET_EPS
-from rust_pathtracer_tpu.ops.projected import (
-    PAY_COLOR,
-    PAY_EVEN,
-    PAY_FUZZ,
-    PAY_IR,
-    PAY_MKIND,
-    PAY_ODD,
-    PAY_TKIND,
-    PAY_TSCALE,
-    PAY_W,
-)
 from rust_pathtracer_tpu.perlin import marble_planes
 from rust_pathtracer_tpu.scene.types import (
     MAT_DIELECTRIC,
@@ -72,18 +66,20 @@ from rust_pathtracer_tpu.vecmath import _SAFE_EPS, NEAR_ZERO
 
 _RECT_FREE = {0: (1, 2), 1: (0, 2), 2: (0, 1)}
 
-# 32-row blocks (4096 lanes/step): measured round 5 on the v5e bench
-# step (tools/tpu_fbdecomp.py batch C/D) — 8-row blocks moved only
-# ~4 KB per plane per grid step and were DMA-issue-bound: fwd+bwd
-# 60.5 -> 55.3 ms, nondiff fwd 30.9 -> 26.9.  fb16 57.7 / fb64 55.6 /
-# fb128 56.5 — 32 is the sweet spot.
-BLOCK_ROWS = int(os.environ.get("RPT_FB_BLOCK_ROWS", "32"))
+# packed primitive table rows (pack_prims_shaded):
+#   0-11  Primitives.data row
+#   12-14 prim kind / aux / material id
+#   16-29 flattened shading row (material + texture), so the body
+#         needs NO per-lane table lookups:
+#   16 mat kind, 17 fuzz, 18 ir, 19 tex kind, 20 tex scale,
+#   21-23 solid color, 24-26 checker odd color, 27-29 checker even color
+PAY_MKIND, PAY_FUZZ, PAY_IR, PAY_TKIND, PAY_TSCALE = 16, 17, 18, 19, 20
+PAY_COLOR, PAY_ODD, PAY_EVEN = 21, 24, 27
+PAY_W = 32
 
 
 def fused_bounce_ok(scene) -> bool:
-    """Static routing: can this scene's whole bounce run in-kernel?"""
-    if os.environ.get("RPT_FUSED_BOUNCE", "1") != "1":
-        return False
+    """Static routing: can this scene's whole bounce run fused?"""
     return (
         scene.kinds_static is not None
         and getattr(scene, "shade_static", False)
@@ -91,18 +87,9 @@ def fused_bounce_ok(scene) -> bool:
     )
 
 
-def fused_bounce_interpret() -> bool:
-    """RPT_FB_INTERPRET=1 routes through the Pallas interpreter so CPU
-    tests exercise the exact kernel (like RPT_PROJ_INTERPRET)."""
-    return os.environ.get("RPT_FB_INTERPRET", "0") == "1"
-
-
 def pack_prims_shaded(scene):
-    """(PAY_W, P) f32 SMEM table: per-primitive geometry + flattened
-    shading row, the transpose of ops/projected.py's payload layout
-    (PAY_*): rows 0-11 prim data, 12 kind, 13 aux, 14 mat, 16 material
-    kind, 17 fuzz, 18 ir, 19 texture kind, 20 scale, 21-23 solid
-    color, 24-26 checker odd color, 27-29 checker even color."""
+    """(PAY_W, P) f32 table: per-primitive geometry + flattened shading
+    row (PAY_* layout above)."""
     prims, mats, texs = scene.prims, scene.materials, scene.textures
     data_t = prims.data.T.astype(jnp.float32)  # (12, P)
     P = prims.kind.shape[0]
@@ -132,7 +119,7 @@ def pack_prims_shaded(scene):
     )
 
 
-# residual `flags` bit layout (ops/fused_bounce custom VJP)
+# residual `flags` bit layout (custom VJP)
 FLG_HIT = 1
 FLG_FRONT = 2
 FLG_CONT = 4
@@ -153,65 +140,43 @@ FLG_ALIVE = 8192      # lane was alive ENTERING the bounce
 FLG_BESTI_SHIFT = 16
 
 
-def _cbrt_tc(u):
-    """Cube root for the Mosaic TC kernel: ``cbrt`` has no TPU
-    lowering (NotImplementedError, like acos/atan2 — see the verify
-    skill's gotcha list), so u^(1/3) = exp(log(u)/3) plus one Newton
-    step (y -> (2y + u/y^2)/3, ~1 ulp on [0,1]); exact 0 at u <= 0.
-    The interpreter path keeps jnp.cbrt so CPU tests compare bitwise
-    against the composed jnp pipeline."""
-    safe = jnp.maximum(u, 1e-30)
-    y = jnp.exp(jnp.log(safe) * (1.0 / 3.0))
-    y = (2.0 * y + safe / (y * y)) * (1.0 / 3.0)
-    return jnp.where(u <= 0.0, 0.0, y)
+def static_sweep(kinds, s, o, d, t_min, shade_rows=()):
+    """Unrolled closest-hit sweep over statically typed primitives.
 
+    ``kinds``: static ((kind, aux), ...) per primitive; ``s(row, p)``
+    returns table entry ``row`` of primitive ``p`` (a scalar);
+    ``o``/``d``: component triples of equal-shape arrays.  Each
+    primitive compiles to exactly its own formula — no masked 3-way
+    dispatch — with the shrinking ``best_t`` as t_max and a strict
+    ``t < best_t`` update, like the reference's list scan.
 
-def _kernel(kinds, mat_types, tex_types, t_min, want_residuals,
-            interpret,
-            prim_ref, bg_ref, seed_ref,
-            ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
-            tx_ref, ty_ref, tz_ref, rx_ref, ry_ref, rz_ref,
-            al_ref, su0_ref, su1_ref, bu0_ref, bu1_ref, bu2_ref,
-            cn_ref,
-            oxo_ref, oyo_ref, ozo_ref, dxo_ref, dyo_ref, dzo_ref,
-            txo_ref, tyo_ref, tzo_ref, rxo_ref, ryo_ref, rzo_ref,
-            alo_ref, *res_refs):
-    ox, oy, oz = ox_ref[:], oy_ref[:], oz_ref[:]
-    dx, dy, dz = dx_ref[:], dy_ref[:], dz_ref[:]
-    alive = al_ref[:] > 0.5
+    Returns (best_t, best_i (-1 on miss), outward normal triple of the
+    winner, the winner's 1/r (0 for rect/triangle winners), and the
+    winner's table entries for each row in ``shade_rows``).
+    """
+    ox, oy, oz = o
+    dx, dy, dz = d
     shape = ox.shape
-
-    # ---- closest-hit sweep (ops/pallas_intersect.py::_kernel_shade
-    # semantics: strict t<best update, outward normal accumulated at
-    # sweep time) + the winning prim's flattened shading row ----------
     a = dx * dx + dy * dy + dz * dz
-    o_c = (ox, oy, oz)
-    d_c = (dx, dy, dz)
 
     best_t = jnp.full(shape, T_MISS, jnp.float32)
     best_i = jnp.full(shape, -1, jnp.int32)
     wnx = jnp.zeros(shape, jnp.float32)
     wny = jnp.zeros(shape, jnp.float32)
     wnz = jnp.zeros(shape, jnp.float32)
-    # winning sphere's 1/r (0 for rect/tri winners): the backward's
-    # sphere-normal chain dn/dpoint = flip/r needs it, and saving it
-    # here is free vs a per-lane kind/radius table resolve in the VJP
     w_invr = jnp.zeros(shape, jnp.float32)
-    acc_rows = (PAY_MKIND, PAY_FUZZ, PAY_IR, PAY_TKIND, PAY_TSCALE,
-                PAY_COLOR, PAY_COLOR + 1, PAY_COLOR + 2,
-                PAY_ODD, PAY_ODD + 1, PAY_ODD + 2,
-                PAY_EVEN, PAY_EVEN + 1, PAY_EVEN + 2)
-    shade = [jnp.zeros(shape, jnp.float32) for _ in acc_rows]
+    shade = [jnp.zeros(shape, jnp.float32) for _ in shade_rows]
 
     for p, (kind, aux) in enumerate(kinds):
-        s = lambda row: prim_ref[row, p]
         if kind == PRIM_SPHERE:
-            cx, cy, cz, r = s(0), s(1), s(2), s(3)
+            cx, cy, cz, r = s(0, p), s(1, p), s(2, p), s(3, p)
             ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
             half_b = dx * ocx + dy * ocy + dz * ocz
             c = ocx * ocx + ocy * ocy + ocz * ocz - r * r
             dis = half_b * half_b - a * c
             sqrtd = jnp.sqrt(jnp.maximum(dis, 0.0))
+            # true division (not reciprocal-multiply), like the jnp
+            # sweep in ops/intersect.py
             root1 = (-half_b - sqrtd) / a
             root2 = (-half_b + sqrtd) / a
             ok1 = (root1 >= t_min) & (root1 <= best_t)
@@ -223,22 +188,22 @@ def _kernel(kinds, mat_types, tex_types, t_min, want_residuals,
             ny = (oy + t * dy - cy) * inv_r
             nz = (oz + t * dz - cz) * inv_r
         elif kind == PRIM_RECT:
-            k, a0, b0, a1, b1, sgn = s(0), s(1), s(2), s(3), s(4), s(5)
+            k, a0, b0, a1, b1, sgn = (s(j, p) for j in range(6))
             fa, fb = _RECT_FREE[aux]
-            t = (k - o_c[aux]) / d_c[aux]
-            av = o_c[fa] + t * d_c[fa]
-            bv = o_c[fb] + t * d_c[fb]
+            t = (k - o[aux]) / d[aux]
+            av = o[fa] + t * d[fa]
+            bv = o[fb] + t * d[fb]
             valid = (
                 (t >= t_min) & (t <= best_t)
                 & (av >= a0) & (av <= a1) & (bv >= b0) & (bv <= b1)
             )
             comp = [jnp.zeros(shape, jnp.float32)] * 3
-            comp[aux] = jnp.full(shape, 1.0) * sgn
+            comp[aux] = jnp.full(shape, 1.0, jnp.float32) * sgn
             nx, ny, nz = comp
         elif kind == PRIM_TRIANGLE:
-            p1x, p1y, p1z = s(0), s(1), s(2)
-            e1x, e1y, e1z = s(3), s(4), s(5)
-            e2x, e2y, e2z = s(6), s(7), s(8)
+            p1x, p1y, p1z = s(0, p), s(1, p), s(2, p)
+            e1x, e1y, e1z = s(3, p), s(4, p), s(5, p)
+            e2x, e2y, e2z = s(6, p), s(7, p), s(8, p)
             pvx = dy * e2z - dz * e2y
             pvy = dz * e2x - dx * e2z
             pvz = dx * e2y - dy * e2x
@@ -256,25 +221,57 @@ def _kernel(kinds, mat_types, tex_types, t_min, want_residuals,
                 & (uu >= 0.0) & (uu <= 1.0) & (vv >= 0.0) & (uu + vv <= 1.0)
                 & (t >= t_min) & (t <= best_t)
             )
-            nx = jnp.full(shape, 1.0) * s(9)
-            ny = jnp.full(shape, 1.0) * s(10)
-            nz = jnp.full(shape, 1.0) * s(11)
+            ones = jnp.full(shape, 1.0, jnp.float32)
+            nx, ny, nz = ones * s(9, p), ones * s(10, p), ones * s(11, p)
         else:
             raise ValueError(f"unknown static kind {kind}")
 
         upd = valid & (t < best_t)
         best_t = jnp.where(upd, t, best_t)
-        best_i = jnp.where(upd, p, best_i)
+        best_i = jnp.where(upd, np.int32(p), best_i)
         wnx = jnp.where(upd, nx, wnx)
         wny = jnp.where(upd, ny, wny)
         wnz = jnp.where(upd, nz, wnz)
-        if kind == PRIM_SPHERE:
-            w_invr = jnp.where(upd, inv_r, w_invr)
-        else:
-            w_invr = jnp.where(upd, 0.0, w_invr)
-        shade = [jnp.where(upd, s(row), acc)
-                 for row, acc in zip(acc_rows, shade)]
+        w_invr = jnp.where(upd, inv_r if kind == PRIM_SPHERE else 0.0,
+                           w_invr)
+        shade = [jnp.where(upd, s(row, p), acc)
+                 for row, acc in zip(shade_rows, shade)]
+    return best_t, best_i, (wnx, wny, wnz), w_invr, shade
 
+
+# the 13 wavefront state columns, in body order (al is f32 0/1),
+# then the 6 uniform columns
+_COL_KEYS = ("o0", "o1", "o2", "d0", "d1", "d2", "t0", "t1", "t2",
+             "r0", "r1", "r2", "al")
+_U_KEYS = ("su0", "su1", "bu0", "bu1", "bu2", "cn")
+_RES_KEYS = ("t", "nx", "ny", "nz", "v0", "v1", "v2", "ratio", "invr",
+             "flags")
+
+
+def bounce_body(kinds, mat_types, tex_types, t_min, want_residuals,
+                s, bg, seed, x):
+    """One whole bounce on equal-shape per-lane arrays.
+
+    ``x``: dict of the 13 state columns (_COL_KEYS) and 6 uniform
+    columns (_U_KEYS); ``s(row, p)``: packed-table scalar reader
+    (pack_prims_shaded layout); ``bg``: background triple of scalars;
+    ``seed``: perlin seed scalar.  Returns the 13 output columns in
+    _COL_KEYS order, followed by the 10 residual columns (_RES_KEYS)
+    when ``want_residuals``.
+    """
+    ox, oy, oz = x["o0"], x["o1"], x["o2"]
+    dx, dy, dz = x["d0"], x["d1"], x["d2"]
+    alive = x["al"] > 0.5
+    shape = ox.shape
+    a = dx * dx + dy * dy + dz * dz
+
+    acc_rows = (PAY_MKIND, PAY_FUZZ, PAY_IR, PAY_TKIND, PAY_TSCALE,
+                PAY_COLOR, PAY_COLOR + 1, PAY_COLOR + 2,
+                PAY_ODD, PAY_ODD + 1, PAY_ODD + 2,
+                PAY_EVEN, PAY_EVEN + 1, PAY_EVEN + 2)
+    best_t, best_i, (wnx, wny, wnz), w_invr, shade = static_sweep(
+        kinds, s, (ox, oy, oz), (dx, dy, dz), t_min, acc_rows
+    )
     (mk, fz, ir_, tk, ts,
      c0, c1, c2, od0, od1, od2, ev0, ev1, ev2) = shade
 
@@ -306,17 +303,17 @@ def _kernel(kinds, mat_types, tex_types, t_min, want_residuals,
         v1 = jnp.where(is_ck, jnp.where(pick, od1, ev1), v1)
         v2 = jnp.where(is_ck, jnp.where(pick, od2, ev2), v2)
     if TEX_PERLIN in tex_types:
-        gray = marble_planes(px, py, pz, seed_ref[0, 0], ts)
+        gray = marble_planes(px, py, pz, seed, ts)
         is_pl = tk == float(TEX_PERLIN)
         v0 = jnp.where(is_pl, gray, v0)
         v1 = jnp.where(is_pl, gray, v1)
         v2 = jnp.where(is_pl, gray, v2)
 
     # ---- emitted + background banking (ray.rs:26,40) -----------------
-    thx, thy, thz = tx_ref[:], ty_ref[:], tz_ref[:]
-    rdx, rdy, rdz = rx_ref[:], ry_ref[:], rz_ref[:]
+    thx, thy, thz = x["t0"], x["t1"], x["t2"]
+    rdx, rdy, rdz = x["r0"], x["r1"], x["r2"]
     miss = alive & jnp.logical_not(hit)
-    bg0, bg1, bg2 = bg_ref[0, 0], bg_ref[0, 1], bg_ref[0, 2]
+    bg0, bg1, bg2 = bg
     rdx = rdx + jnp.where(miss, thx * bg0, 0.0)
     rdy = rdy + jnp.where(miss, thy * bg1, 0.0)
     rdz = rdz + jnp.where(miss, thz * bg2, 0.0)
@@ -342,24 +339,21 @@ def _kernel(kinds, mat_types, tex_types, t_min, want_residuals,
         ux, uy, uz = dx * inv_len, dy * inv_len, dz * inv_len
 
     # ---- RNG transforms (sampling.on/in_unit_sphere_from_u) ---------
-    # Uniforms in, directions here: the trig runs per 8x128 block, so
-    # the values are bitwise identical at EVERY wavefront width and
-    # stage split by construction — stronger than the XLA in-body
-    # guarantee (integrator._precompute_draws docstring), and the
-    # transform rides VMEM for free instead of 7 HBM planes.
+    # Uniforms in, directions here: the trig runs per lane inside the
+    # bounce, so the values are the same at every wavefront width and
+    # stage split.
     if MAT_LAMBERTIAN in mat_types:
-        s_z = 2.0 * su0_ref[:] - 1.0
-        s_phi = (2.0 * np.float32(np.pi)) * su1_ref[:]
+        s_z = 2.0 * x["su0"] - 1.0
+        s_phi = (2.0 * np.float32(np.pi)) * x["su1"]
         s_r = jnp.sqrt(jnp.maximum(1.0 - s_z * s_z, 0.0))
         sph_x = s_r * jnp.cos(s_phi)
         sph_y = s_r * jnp.sin(s_phi)
         sph_z = s_z
     if MAT_METAL in mat_types:
-        b_z = 2.0 * bu0_ref[:] - 1.0
-        b_phi = (2.0 * np.float32(np.pi)) * bu1_ref[:]
+        b_z = 2.0 * x["bu0"] - 1.0
+        b_phi = (2.0 * np.float32(np.pi)) * x["bu1"]
         b_rho = jnp.sqrt(jnp.maximum(1.0 - b_z * b_z, 0.0))
-        b_s = (jnp.cbrt(bu2_ref[:]) if interpret
-               else _cbrt_tc(bu2_ref[:]))
+        b_s = jnp.cbrt(x["bu2"])
         ball_x = b_rho * jnp.cos(b_phi) * b_s
         ball_y = b_rho * jnp.sin(b_phi) * b_s
         ball_z = b_z * b_s
@@ -411,7 +405,7 @@ def _kernel(kinds, mat_types, tex_types, t_min, want_residuals,
         r0 = ((1.0 - ratio) / (1.0 + ratio)) ** 2
         one_c = 1.0 - cos_t
         refl_p = r0 + (1.0 - r0) * one_c ** 5
-        choose_reflect = cannot | (refl_p > cn_ref[:])
+        choose_reflect = cannot | (refl_p > x["cn"])
         dnu = ux * nx + uy * ny + uz * nz
         rfx = ux - 2.0 * dnu * nx
         rfy = uy - 2.0 * dnu * ny
@@ -447,62 +441,26 @@ def _kernel(kinds, mat_types, tex_types, t_min, want_residuals,
 
     # ---- state commit (integrator._bounce_step tail) -----------------
     cont = hit & did
-    txo_ref[:] = jnp.where(cont, thx * at0, thx)
-    tyo_ref[:] = jnp.where(cont, thy * at1, thy)
-    tzo_ref[:] = jnp.where(cont, thz * at2, thz)
-    oxo_ref[:] = jnp.where(cont, px, ox)
-    oyo_ref[:] = jnp.where(cont, py, oy)
-    ozo_ref[:] = jnp.where(cont, pz, oz)
-    dxo_ref[:] = jnp.where(cont, sdx, dx)
-    dyo_ref[:] = jnp.where(cont, sdy, dy)
-    dzo_ref[:] = jnp.where(cont, sdz, dz)
-    rxo_ref[:] = rdx
-    ryo_ref[:] = rdy
-    rzo_ref[:] = rdz
-    alo_ref[:] = cont.astype(jnp.float32)
-
-    if want_residuals:
-        # what the hand-written VJP (fused_bounce_vjp) consumes — see
-        # _bounce_bwd for the exact formulas each field feeds.  The
-        # refs' dtype may be bfloat16 (RPT_FBD_RES=bf16): the store
-        # rounds, the backward upcasts on load — halves the residual
-        # round-trip traffic under the documented gradient-accuracy
-        # contract (primal forward bitwise unchanged either way).
-        (t_ref, rnx_ref, rny_ref, rnz_ref, rv0_ref, rv1_ref, rv2_ref,
-         rratio_ref, rinvr_ref, rflags_ref) = res_refs
-        rdt = t_ref.dtype
-        flags = (flags + flag(cont, FLG_CONT) + flag(alive, FLG_ALIVE)
-                 + (jnp.maximum(best_i, 0) << FLG_BESTI_SHIFT))
-        t_ref[:] = t.astype(rdt)
-        rnx_ref[:] = nx.astype(rdt)
-        rny_ref[:] = ny.astype(rdt)
-        rnz_ref[:] = nz.astype(rdt)
-        rv0_ref[:] = v0.astype(rdt)
-        rv1_ref[:] = v1.astype(rdt)
-        rv2_ref[:] = v2.astype(rdt)
-        rratio_ref[:] = ratio.astype(rdt)
-        rinvr_ref[:] = (flip * w_invr).astype(rdt)
-        rflags_ref[:] = flags
-
-
-# the 13 wavefront state columns, in kernel order (al is f32 0/1)
-_COL_KEYS = ("o0", "o1", "o2", "d0", "d1", "d2", "t0", "t1", "t2",
-             "r0", "r1", "r2", "al")
-
-
-def _plane(x, R=None):
-    """(R,) column -> (rows, 128) plane.  A FREE reshape when R is a
-    multiple of the lane block (the renderer's chunk widths are) —
-    the whole point of the column-native carry: no strided
-    column-extract copies around the kernel."""
-    R = x.shape[0] if R is None else R
-    lane_block = BLOCK_ROWS * 128
-    rp = -(-R // lane_block) * lane_block
-    return jnp.pad(x, (0, rp - R)).reshape(rp // 128, 128)
+    out = (
+        jnp.where(cont, px, ox), jnp.where(cont, py, oy),
+        jnp.where(cont, pz, oz),
+        jnp.where(cont, sdx, dx), jnp.where(cont, sdy, dy),
+        jnp.where(cont, sdz, dz),
+        jnp.where(cont, thx * at0, thx), jnp.where(cont, thy * at1, thy),
+        jnp.where(cont, thz * at2, thz),
+        rdx, rdy, rdz,
+        cont.astype(jnp.float32),
+    )
+    if not want_residuals:
+        return out
+    # what the hand-written VJP (_bounce_grads) consumes
+    flags = (flags + flag(cont, FLG_CONT) + flag(alive, FLG_ALIVE)
+             + (jnp.maximum(best_i, 0) << FLG_BESTI_SHIFT))
+    return out + (t, nx, ny, nz, v0, v1, v2, ratio, flip * w_invr, flags)
 
 
 def _res_dtype():
-    """Residual-plane dtype: f32 (default) or bf16 (RPT_FBD_RES=bf16,
+    """Residual dtype: f32 (default) or bf16 (RPT_FBD_RES=bf16,
     opt-in — halves the residual round-trip under a documented
     gradient-accuracy contract; flags stay int32 either way)."""
     return (jnp.bfloat16 if os.environ.get("RPT_FBD_RES") == "bf16"
@@ -511,75 +469,54 @@ def _res_dtype():
 
 @functools.partial(jax.jit, static_argnames=("kinds", "mat_types",
                                              "tex_types", "t_min",
-                                             "interpret",
                                              "want_residuals"))
 def _fused_bounce_cols(packed, bg, seed, cols, su0, su1, bu0, bu1, bu2,
                        coin, *, kinds, mat_types, tex_types, t_min,
-                       interpret=False, want_residuals=False):
+                       want_residuals=False):
     """Column-native fused bounce: 13 (R,) state columns + 6 (R,)
-    uniform columns in, 13 (R,) columns out (+ planed residuals).
-    All reshapes to the kernel's (rows, 128) layout are contiguous."""
-    R = cols["o0"].shape[0]
-    planes = [_plane(cols[k], R) for k in _COL_KEYS] + [
-        _plane(x, R) for x in (su0, su1, bu0, bu1, bu2, coin)
-    ]
-    rows = planes[0].shape[0]
-    grid = (rows // BLOCK_ROWS,)
-    ray_spec = pl.BlockSpec(
-        (BLOCK_ROWS, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
+    uniform columns in, 13 (R,) columns out (+ the (R,) residual
+    columns, keyed by _RES_KEYS, when ``want_residuals``)."""
+    x = dict(cols, su0=su0, su1=su1, bu0=bu0, bu1=bu1, bu2=bu2, cn=coin)
+    outs = bounce_body(
+        kinds, mat_types, tex_types, t_min, want_residuals,
+        lambda row, p: packed[row, p], (bg[0], bg[1], bg[2]),
+        seed.reshape(()), x,
     )
-    tab_space = pltpu.SMEM if packed.shape[1] <= 128 else pltpu.VMEM
-    vma = jax.typeof(cols["o0"]).vma  # shard_map check_vma
-    f32 = jax.ShapeDtypeStruct((rows, 128), jnp.float32, vma=vma)
-    i32 = jax.ShapeDtypeStruct((rows, 128), jnp.int32, vma=vma)
-    n_out = 13 + (10 if want_residuals else 0)
-    out_shape = (f32,) * 13
-    if want_residuals:
-        rf = jax.ShapeDtypeStruct((rows, 128), _res_dtype(), vma=vma)
-        out_shape = out_shape + (rf,) * 9 + (i32,)
-    outs = pl.pallas_call(
-        functools.partial(_kernel, kinds, mat_types, tex_types, t_min,
-                          want_residuals, interpret),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(packed.shape, lambda i: (0, 0),
-                         memory_space=tab_space),
-            pl.BlockSpec((1, 3), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-        ] + [ray_spec] * 19,
-        out_specs=(ray_spec,) * n_out,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(packed, bg.reshape(1, 3), seed.reshape(1, 1), *planes)
-
-    cols_out = {
-        k: x.reshape(-1)[:R] for k, x in zip(_COL_KEYS, outs[:13])
-    }
+    rdt = _res_dtype()
+    outs = tuple(outs[:13]) + tuple(
+        v.astype(rdt) if v.dtype == jnp.float32 else v for v in outs[13:]
+    )
+    cols_out = dict(zip(_COL_KEYS, outs[:13]))
     if not want_residuals:
         return cols_out
-    # residuals stay PLANED (rows, 128): the Pallas backward consumes
-    # them block-for-block with zero relayout; lanes >= R are dead
-    # (alive padded 0 -> no CONT/HIT flag -> zero grads)
-    res = dict(zip(_RES_KEYS, outs[13:]))
-    return cols_out, res
+    return cols_out, dict(zip(_RES_KEYS, outs[13:]))
 
 
-def _fused_bounce(packed, bg, seed, o, d, thr, rad, alive,
-                  sphere_u, ball_u, coin, *, kinds, mat_types,
-                  tex_types, t_min, interpret=False):
-    """(R, 3) AoS wrapper over _fused_bounce_cols (regen wavefront +
-    trace_resume keep this interface; the hot diff/nondiff scans use
-    the column carry directly)."""
+def fused_bounce_apply(scene, o, d, thr, rad, alive, sphere_u,
+                       ball_u, coin, background, t_min):
+    """Run one full bounce fused, on (R, 3) arrays (the regen wavefront
+    and trace_resume keep this interface; the hot diff/nondiff scans
+    use the column carry directly).
+
+    ``sphere_u`` (R, 2) and ``ball_u`` (R, 3) are RAW UNIFORMS —
+    the on/in-unit-sphere transforms run in the fused body.
+
+    Returns (o', d', thr', rad', alive') with the same semantics as the
+    composed search_and_record + shade + commit path in
+    integrator._bounce_step (russian roulette NOT applied — callers
+    keep it in XLA, where its lax.cond belongs)."""
     cols = dict(zip(_COL_KEYS, (
         o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
         thr[:, 0], thr[:, 1], thr[:, 2], rad[:, 0], rad[:, 1],
         rad[:, 2], alive.astype(jnp.float32),
     )))
     c = _fused_bounce_cols(
-        packed, bg, seed, cols, sphere_u[:, 0], sphere_u[:, 1],
-        ball_u[:, 0], ball_u[:, 1], ball_u[:, 2], coin, kinds=kinds,
-        mat_types=mat_types, tex_types=tex_types, t_min=t_min,
-        interpret=interpret,
+        pack_prims_shaded(scene), jnp.asarray(background, jnp.float32),
+        jnp.asarray(scene.textures.perlin_seed, jnp.uint32), cols,
+        sphere_u[:, 0], sphere_u[:, 1], ball_u[:, 0], ball_u[:, 1],
+        ball_u[:, 2], coin, kinds=scene.kinds_static,
+        mat_types=scene.mat_types, tex_types=scene.tex_types,
+        t_min=float(t_min),
     )
     return (
         jnp.stack([c["o0"], c["o1"], c["o2"]], 1),
@@ -590,185 +527,8 @@ def _fused_bounce(packed, bg, seed, o, d, thr, rad, alive,
     )
 
 
-def fused_bounce_apply(scene, o, d, thr, rad, alive, sphere_u,
-                       ball_u, coin, background, t_min,
-                       interpret=False):
-    """Run one full bounce in the fused kernel.
-
-    ``sphere_u`` (R, 2) and ``ball_u`` (R, 3) are RAW UNIFORMS —
-    the on/in-unit-sphere transforms run in-kernel (bitwise stable at
-    every wavefront width; see _kernel).
-
-    Returns (o', d', thr', rad', alive') with the same semantics as the
-    composed search_and_record + shade + commit path in
-    integrator._bounce_step (russian roulette NOT applied — callers
-    keep it in XLA, where its lax.cond belongs)."""
-    packed = pack_prims_shaded(scene)
-    seed = jnp.asarray(scene.textures.perlin_seed, jnp.uint32)
-    bg = jnp.asarray(background, jnp.float32)
-    o2, d2, t2, r2, al2 = _fused_bounce(
-        packed, bg, seed, o, d, thr, rad, alive, sphere_u, ball_u,
-        coin, kinds=scene.kinds_static, mat_types=scene.mat_types,
-        tex_types=scene.tex_types, t_min=float(t_min),
-        interpret=interpret,
-    )
-    return o2, d2, t2, r2, al2
-
-
-def _bwd_kernel(mat_types, bg_ref,
-                t_ref, nx_ref, ny_ref, nz_ref, v0_ref, v1_ref, v2_ref,
-                ratio_ref, invr_ref, flags_ref,
-                dx_ref, dy_ref, dz_ref,
-                gox_ref, goy_ref, goz_ref, gdx_ref, gdy_ref, gdz_ref,
-                gtx_ref, gty_ref, gtz_ref, grx_ref, gry_ref, grz_ref,
-                ox_o, oy_o, oz_o, dx_o, dy_o, dz_o, tx_o, ty_o, tz_o):
-    """Transposed-shading kernel: every per-lane elementwise chain of
-    the closed-form VJP (_make_fused_bounce_vjp docs) in ONE pallas
-    block — residuals + cotangents in, (g_o, g_d, g_thr) out, zero
-    HBM materialization of the ~40 (R,3) intermediates XLA would
-    otherwise stream per bounce."""
-    flags = flags_ref[:]
-
-    def bit(b):
-        return (flags & b) != 0
-
-    hit = bit(FLG_HIT)
-    cont = bit(FLG_CONT)
-    reflect = bit(FLG_REFLECT)
-    sel_l = bit(FLG_SEL_L) & cont
-    sel_m = bit(FLG_SEL_M) & cont
-    sel_d = bit(FLG_SEL_D) & cont
-    light_on = bit(FLG_LIGHT_ON)
-    cos_clamp = bit(FLG_COS_CLAMP)
-    refr_zero = bit(FLG_REFR_ZERO)
-    l_neg = bit(FLG_L_NEG)
-    miss = bit(FLG_ALIVE) & jnp.logical_not(hit)
-
-    def mz(mask, x):
-        return jnp.where(mask, x, 0.0)
-
-    f32 = jnp.float32
-    dx, dy, dz = dx_ref[:], dy_ref[:], dz_ref[:]
-    nx = nx_ref[:].astype(f32)
-    ny = ny_ref[:].astype(f32)
-    nz = nz_ref[:].astype(f32)
-    gox2, goy2, goz2 = gox_ref[:], goy_ref[:], goz_ref[:]
-    gdx2, gdy2, gdz2 = gdx_ref[:], gdy_ref[:], gdz_ref[:]
-    gtx2, gty2, gtz2 = gtx_ref[:], gty_ref[:], gtz_ref[:]
-    grx2, gry2, grz2 = grx_ref[:], gry_ref[:], grz_ref[:]
-
-    a = dx * dx + dy * dy + dz * dz
-    inv_sa = jax.lax.rsqrt(jnp.maximum(a, _SAFE_EPS))
-    ux, uy, uz = dx * inv_sa, dy * inv_sa, dz * inv_sa
-    rr = ratio_ref[:].astype(f32)
-
-    # ---- scatter direction chains: g_dir -> (g_u, g_n) --------------
-    g_dirx = mz(cont, gdx2)
-    g_diry = mz(cont, gdy2)
-    g_dirz = mz(cont, gdz2)
-    g_nx = mz(sel_l, g_dirx)
-    g_ny = mz(sel_l, g_diry)
-    g_nz = mz(sel_l, g_dirz)
-    g_ux = jnp.zeros_like(dx)
-    g_uy = jnp.zeros_like(dx)
-    g_uz = jnp.zeros_like(dx)
-
-    refl_m = sel_m | (sel_d & reflect)
-    if (MAT_METAL in mat_types) or (MAT_DIELECTRIC in mat_types):
-        s = ux * nx + uy * ny + uz * nz
-        grx = mz(refl_m, g_dirx)
-        gry = mz(refl_m, g_diry)
-        grz = mz(refl_m, g_dirz)
-        ngr = nx * grx + ny * gry + nz * grz
-        g_ux = g_ux + grx - 2.0 * nx * ngr
-        g_uy = g_uy + gry - 2.0 * ny * ngr
-        g_uz = g_uz + grz - 2.0 * nz * ngr
-        g_nx = g_nx - 2.0 * (ux * ngr + s * grx)
-        g_ny = g_ny - 2.0 * (uy * ngr + s * gry)
-        g_nz = g_nz - 2.0 * (uz * ngr + s * grz)
-
-    if MAT_DIELECTRIC in mat_types:
-        rm = sel_d & jnp.logical_not(reflect)
-        goutx = mz(rm, g_dirx)
-        gouty = mz(rm, g_diry)
-        goutz = mz(rm, g_dirz)
-        raw_cos = -(ux * nx + uy * ny + uz * nz)
-        cos = jnp.minimum(raw_cos, 1.0)
-        perpx = rr * (ux + cos * nx)
-        perpy = rr * (uy + cos * ny)
-        perpz = rr * (uz + cos * nz)
-        pp = perpx * perpx + perpy * perpy + perpz * perpz
-        abs_l = jnp.abs(1.0 - pp)
-        s_par = jnp.where(refr_zero, 0.0, jnp.sqrt(abs_l))
-        g_spar = -(nx * goutx + ny * gouty + nz * goutz)
-        g_nx = g_nx - s_par * goutx
-        g_ny = g_ny - s_par * gouty
-        g_nz = g_nz - s_par * goutz
-        g_absl = jnp.where(
-            refr_zero, 0.0, g_spar / jnp.maximum(2.0 * s_par, 1e-30)
-        )
-        sg = jnp.where(l_neg, -g_absl, g_absl)
-        g_perpx = goutx - 2.0 * perpx * sg
-        g_perpy = gouty - 2.0 * perpy * sg
-        g_perpz = goutz - 2.0 * perpz * sg
-        g_ux = g_ux + rr * g_perpx
-        g_uy = g_uy + rr * g_perpy
-        g_uz = g_uz + rr * g_perpz
-        g_nx = g_nx + rr * cos * g_perpx
-        g_ny = g_ny + rr * cos * g_perpy
-        g_nz = g_nz + rr * cos * g_perpz
-        g_cos = jnp.where(
-            cos_clamp, 0.0,
-            rr * (nx * g_perpx + ny * g_perpy + nz * g_perpz),
-        )
-        g_ux = g_ux - nx * g_cos
-        g_uy = g_uy - ny * g_cos
-        g_uz = g_uz - nz * g_cos
-        g_nx = g_nx - ux * g_cos
-        g_ny = g_ny - uy * g_cos
-        g_nz = g_nz - uz * g_cos
-
-    # ---- u = d/|d| -> d ----------------------------------------------
-    udg = ux * g_ux + uy * g_uy + uz * g_uz
-    g_dx = mz(jnp.logical_not(cont), gdx2) + (g_ux - ux * udg) * inv_sa
-    g_dy = mz(jnp.logical_not(cont), gdy2) + (g_uy - uy * udg) * inv_sa
-    g_dz = mz(jnp.logical_not(cont), gdz2) + (g_uz - uz * udg) * inv_sa
-
-    # ---- throughput (attenuation + miss background + light emission) -
-    v0 = v0_ref[:].astype(f32)
-    v1 = v1_ref[:].astype(f32)
-    v2 = v2_ref[:].astype(f32)
-    lm = sel_l | sel_m
-    bg0, bg1, bg2 = bg_ref[0, 0], bg_ref[0, 1], bg_ref[0, 2]
-    tx_o[:] = (jnp.where(cont, jnp.where(lm, v0, 1.0) * gtx2, gtx2)
-               + mz(miss, bg0 * grx2) + mz(light_on, v0 * grx2))
-    ty_o[:] = (jnp.where(cont, jnp.where(lm, v1, 1.0) * gty2, gty2)
-               + mz(miss, bg1 * gry2) + mz(light_on, v1 * gry2))
-    tz_o[:] = (jnp.where(cont, jnp.where(lm, v2, 1.0) * gtz2, gtz2)
-               + mz(miss, bg2 * grz2) + mz(light_on, v2 * grz2))
-
-    # ---- normal -> hit point (sphere dn/dp = flip/r, 0 otherwise) ----
-    invr = invr_ref[:].astype(f32)
-    g_px = mz(cont, gox2) + invr * g_nx
-    g_py = mz(cont, goy2) + invr * g_ny
-    g_pz = mz(cont, goz2) + invr * g_nz
-
-    # ---- point = o + t(o,d) d; analytic-t chain ----------------------
-    t = t_ref[:].astype(f32)
-    g_t = dx * g_px + dy * g_py + dz * g_pz
-    den = nx * dx + ny * dy + nz * dz
-    den = jnp.where(jnp.abs(den) < 1e-30, 1.0, den)
-    q = g_t / den
-    ox_o[:] = mz(jnp.logical_not(cont), gox2) + g_px - q * nx
-    oy_o[:] = mz(jnp.logical_not(cont), goy2) + g_py - q * ny
-    oz_o[:] = mz(jnp.logical_not(cont), goz2) + g_pz - q * nz
-    dx_o[:] = g_dx + t * g_px - q * t * nx
-    dy_o[:] = g_dy + t * g_py - q * t * ny
-    dz_o[:] = g_dz + t * g_pz - q * t * nz
-
-
 # ---------------------------------------------------------------------------
-# differentiable path: Pallas forward + hand-written closed-form backward
+# differentiable path: fused forward + hand-written closed-form backward
 # ---------------------------------------------------------------------------
 #
 # The custom VJP computes exactly what reverse-mode AD computes through
@@ -780,7 +540,7 @@ def _bwd_kernel(mat_types, bg_ref,
 # * t is the implicit-function linearization (integrator._analytic_t):
 #   dt/do = -n/(n.d), dt/dd = -t n/(n.d) — any nonzero multiple of the
 #   surface normal works (scale and sign cancel in the ratio), so the
-#   kernel's saved flipped unit normal serves;
+#   body's saved flipped unit normal serves;
 # * the sphere's shading normal is differentiable through the hit point
 #   (record_from_rows: n = flip*(point-c)/r, so dn/dpoint = flip/r);
 #   rect/triangle shading normals are constants;
@@ -800,29 +560,19 @@ def _bwd_kernel(mat_types, bg_ref,
 
 
 def fused_bounce_diff_ok(scene) -> bool:
-    """Static routing for the differentiable fused bounce.
-
-    Default ON: with the column-native carry + Pallas transposed-
-    shading backward this beats the XLA diff path on the v5e
-    CornellBox 512^2 bench step (76.3 vs 87.0 ms fwd+bwd same-day;
-    diff forward 38.8 vs 67.9) — see DESIGN.md §13 for the
-    progression.  RPT_FUSED_BOUNCE_DIFF=0 reverts to the XLA path."""
+    """Static routing for the differentiable fused bounce."""
     return (
         fused_bounce_ok(scene)
         and set(scene.tex_types) <= {TEX_SOLID, TEX_CHECKER}
         and os.environ.get("RPT_DIFF_T", "analytic") == "analytic"
-        and os.environ.get("RPT_FUSED_BOUNCE_DIFF", "1") == "1"
     )
 
 
 @functools.lru_cache(maxsize=None)
-def _make_fused_bounce_vjp(kinds, mat_types, tex_types, t_min, interpret):
+def _make_fused_bounce_vjp(kinds, mat_types, tex_types, t_min):
     """Column-native custom VJP: ``bounce(cols, su0, su1, bu0, bu1,
     bu2, coin, packed, bg) -> cols'`` where ``cols`` is the 13-column
-    state dict (_COL_KEYS).  Column carries keep every reshape around
-    the forward/backward kernels contiguous — the (R, 3) AoS carry
-    paid ~26 strided column-extract/stack copies per bounce in each
-    sweep."""
+    state dict (_COL_KEYS)."""
     P = len(kinds)
 
     def run(cols, su0, su1, bu0, bu1, bu2, coin, packed, bg, want_res):
@@ -830,7 +580,7 @@ def _make_fused_bounce_vjp(kinds, mat_types, tex_types, t_min, interpret):
         return _fused_bounce_cols(
             packed, bg, seed, cols, su0, su1, bu0, bu1, bu2, coin,
             kinds=kinds, mat_types=mat_types, tex_types=tex_types,
-            t_min=t_min, interpret=interpret, want_residuals=want_res,
+            t_min=t_min, want_residuals=want_res,
         )
 
     @jax.custom_vjp
@@ -848,23 +598,13 @@ def _make_fused_bounce_vjp(kinds, mat_types, tex_types, t_min, interpret):
     def bwd(saved, cots):
         d, thr, bg, res, packed = saved
         zr = jnp.zeros_like(d[0])
-
-        # RPT_FBD_PROBE (perf decomposition only — WRONG GRADIENTS):
-        # "zero" returns zero cotangents (isolates residual traffic +
-        # scan transpose machinery); "notex" skips the packed-color
-        # one-hot contraction (isolates its cost).
-        probe = os.environ.get("RPT_FBD_PROBE", "")
-        if probe == "zero":
-            return ({k: zr for k in _COL_KEYS}, zr, zr, zr, zr, zr, zr,
-                    jnp.zeros_like(packed), jnp.zeros_like(bg))
-
         g_o2 = (cots["o0"], cots["o1"], cots["o2"])
         g_d2 = (cots["d0"], cots["d1"], cots["d2"])
         g_thr2 = (cots["t0"], cots["t1"], cots["t2"])
         g_rad2 = (cots["r0"], cots["r1"], cots["r2"])
         g_o, g_d, g_thr, gp, g_bg = _bounce_grads(
             res, d, thr, bg, g_o2, g_d2, g_thr2, g_rad2, packed, P,
-            mat_types, interpret, probe,
+            mat_types,
         )
         g_cols = dict(zip(_COL_KEYS, (
             g_o[0], g_o[1], g_o[2], g_d[0], g_d[1], g_d[2],
@@ -880,33 +620,26 @@ def _make_fused_bounce_vjp(kinds, mat_types, tex_types, t_min, interpret):
 
 
 def _bounce_grads(res, d, thr, bg, g_o2, g_d2, g_thr2, g_rad2, packed,
-                  P, mat_types, interpret, probe=""):
+                  P, mat_types):
     """One bounce's closed-form input cotangents, shared by the
     per-bounce custom VJP and the whole-scan VJP (fused_scan_trace):
     (g_o, g_d, g_thr column triples, d_packed, d_bg)."""
-    R = d[0].shape[0]
-    flags_l = res["flags"].reshape(-1)[:R]
-    best_i = flags_l >> FLG_BESTI_SHIFT
-    hit = _bit(flags_l, FLG_HIT)
-    cont = _bit(flags_l, FLG_CONT)
-    sines_neg = _bit(flags_l, FLG_SINES_NEG)
-    sel_l = _bit(flags_l, FLG_SEL_L) & cont
-    sel_m = _bit(flags_l, FLG_SEL_M) & cont
-    light_on = _bit(flags_l, FLG_LIGHT_ON)
-    is_ck = _bit(flags_l, FLG_IS_CK)
-    miss = _bit(flags_l, FLG_ALIVE) & ~hit
+    flags = res["flags"]
+    best_i = flags >> FLG_BESTI_SHIFT
+    hit = _bit(flags, FLG_HIT)
+    cont = _bit(flags, FLG_CONT)
+    sines_neg = _bit(flags, FLG_SINES_NEG)
+    sel_l = _bit(flags, FLG_SEL_L) & cont
+    sel_m = _bit(flags, FLG_SEL_M) & cont
+    light_on = _bit(flags, FLG_LIGHT_ON)
+    is_ck = _bit(flags, FLG_IS_CK)
+    miss = _bit(flags, FLG_ALIVE) & ~hit
 
-    if os.environ.get("RPT_FBD_BWD", "pallas") == "pallas":
-        g_o, g_d, g_thr = _bwd_call(
-            res, d, bg, g_o2, g_d2, g_thr2, g_rad2,
-            mat_types=mat_types, interpret=interpret,
-        )
-    else:
-        g_o, g_d, g_thr = _bwd_xla(
-            res, d, bg, g_o2, g_d2, g_thr2, g_rad2, mat_types,
-        )
+    g_o, g_d, g_thr = _bwd_xla(
+        res, d, bg, g_o2, g_d2, g_thr2, g_rad2, mat_types,
+    )
 
-    # ---- small reductions stay in XLA (fuse with the einsum) -----
+    # ---- small reductions (fuse with the contraction below) ------
     missf = miss.astype(jnp.float32)
     g_bg = jnp.stack([
         jnp.sum(missf * thr[c] * g_rad2[c]) for c in range(3)
@@ -918,10 +651,7 @@ def _bounce_grads(res, d, thr, bg, g_o2, g_d2, g_thr2, g_rad2, packed,
         for c in range(3)
     ]
 
-    # ---- packed color rows (ONE one-hot MXU contraction) ----------
-    # HIGHEST precision like ops/table.lookup: the one-hot operand
-    # is exact, but the default TPU matmul precision would truncate
-    # g_val to bf16
+    # ---- packed color rows: ONE one-hot contraction -----------------
     onehot = (
         (best_i[:, None] == jnp.arange(P, dtype=jnp.int32)[None, :])
         & hit[:, None]
@@ -931,44 +661,32 @@ def _bounce_grads(res, d, thr, bg, g_o2, g_d2, g_thr2, g_rad2, packed,
         (PAY_ODD, is_ck & sines_neg),
         (PAY_EVEN, is_ck & ~sines_neg),
     )
+    gv9 = jnp.stack(
+        [g_val[c] * mask.astype(jnp.float32)
+         for _, mask in targets for c in range(3)], axis=1
+    )                                                     # (R, 9)
+    # RPT_FBD_RES=bf16 extends the residual-accuracy contract to the
+    # texture-grad contraction: bf16 operands (the one-hot is exact in
+    # bf16; gv9 rounds — same ~1e-2 normalized class as the bf16
+    # residuals)
+    if _res_dtype() == jnp.bfloat16:
+        contrib = jnp.einsum(
+            "rp,rc->pc", onehot.astype(jnp.bfloat16),
+            gv9.astype(jnp.bfloat16),
+            preferred_element_type=jnp.float32,
+        ).astype(jnp.float32)
+    else:
+        # HIGHEST: a float32 matmul at default precision may run in
+        # TF32 (10-bit mantissa) on the GPU; at HIGHEST the one-hot
+        # contraction is exact per term, like ops/table.lookup
+        contrib = jnp.einsum(
+            "rp,rc->pc", onehot, gv9,
+            preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
+        )                                                 # (P, 9)
     gp = jnp.zeros_like(packed)
-    if probe != "notex":
-        gv9 = jnp.stack(
-            [g_val[c] * mask.astype(jnp.float32)
-             for _, mask in targets for c in range(3)], axis=1
-        )                                                 # (R, 9)
-        # RPT_FBD_RES=bf16 extends the residual-accuracy contract to
-        # the texture-grad contraction: bf16 operands halve the
-        # (R, P) one-hot + (R, 9) materialization traffic (the one-hot
-        # is exact in bf16; gv9 rounds — same ~1e-2 normalized class
-        # as the bf16 residual planes)
-        if _res_dtype() == jnp.bfloat16:
-            contrib = jnp.einsum(
-                "rp,rc->pc", onehot.astype(jnp.bfloat16),
-                gv9.astype(jnp.bfloat16),
-                preferred_element_type=jnp.float32,
-            ).astype(jnp.float32)
-        else:
-            # Precision.HIGH (3-pass) not HIGHEST (6-pass): the bf16
-            # triple-split represents each f32 operand EXACTLY (one-hot
-            # entries are 0/1; gv9's 24 mantissa bits fit 3 bf16
-            # passes), so per-term products are exact and only the f32
-            # accumulation order differs — same accuracy class, half
-            # the MXU passes on a contraction whose cost is pure
-            # padding (P=18 -> 128, C=9 -> 128 tiles).
-            # RPT_FBD_EINSUM=highest restores the 6-pass version.
-            prec = (jax.lax.Precision.HIGHEST
-                    if os.environ.get("RPT_FBD_EINSUM") == "highest"
-                    else jax.lax.Precision.HIGH)
-            contrib = jnp.einsum(
-                "rp,rc->pc", onehot, gv9,
-                preferred_element_type=jnp.float32,
-                precision=prec,
-            )                                             # (P, 9)
-        for j, (row0, _) in enumerate(targets):
-            gp = gp.at[row0:row0 + 3].add(
-                contrib[:, 3 * j:3 * j + 3].T
-            )
+    for j, (row0, _) in enumerate(targets):
+        gp = gp.at[row0:row0 + 3].add(contrib[:, 3 * j:3 * j + 3].T)
     return g_o, g_d, g_thr, gp, g_bg
 
 
@@ -993,71 +711,18 @@ def _psum_to_replicated(g, primal):
     return jax.lax.psum(g, extra) if extra else g
 
 
-_RES_KEYS = ("t", "nx", "ny", "nz", "v0", "v1", "v2", "ratio", "invr",
-             "flags")
-
-
-@functools.partial(jax.jit, static_argnames=("mat_types", "interpret"))
-def _bwd_call(res, d, bg, g_o2, g_d2, g_thr2, g_rad2, *,
-              mat_types, interpret=False):
-    """Dispatch the transposed-shading Pallas kernel: planed residuals
-    + column cotangents in, (g_o, g_d, g_thr) column triples out.
-    ``d`` and the cotangents are 3-tuples of (R,) columns — every
-    reshape here is contiguous.
-
-    Block size: the kernel is pure elementwise chains over 34 planes,
-    so at the forward kernel's 8-row blocks each grid step moves only
-    ~136 KB — DMA-issue-bound, not compute-bound.  RPT_FBD_BWD_ROWS
-    (default 64) uses taller blocks for the backward only (the
-    forward's block is tied to the sweep's VMEM working set); clamped
-    to the largest divisor of the plane height.
-    """
-    rows = res["t"].shape[0]
-    R = d[0].shape[0]
-
-    ins = [res[k] for k in _RES_KEYS]
-    for v in (d, g_o2, g_d2, g_thr2, g_rad2):
-        ins.extend(_plane(c, R) for c in v)
-    want = int(os.environ.get("RPT_FBD_BWD_ROWS", "64"))
-    nbr = max(BLOCK_ROWS, min(want, rows))
-    while rows % nbr:
-        nbr -= BLOCK_ROWS
-    grid = (rows // nbr,)
-    ray_spec = pl.BlockSpec(
-        (nbr, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    vma = jax.typeof(d[0]).vma
-    f32 = jax.ShapeDtypeStruct((rows, 128), jnp.float32, vma=vma)
-    outs = pl.pallas_call(
-        functools.partial(_bwd_kernel, mat_types),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 3), lambda i: (0, 0), memory_space=pltpu.SMEM),
-        ] + [ray_spec] * 25,
-        out_specs=(ray_spec,) * 9,
-        out_shape=(f32,) * 9,
-        interpret=interpret,
-    )(bg.reshape(1, 3), *ins)
-
-    o = [x.reshape(-1)[:R] for x in outs]
-    return tuple(o[0:3]), tuple(o[3:6]), tuple(o[6:9])
-
-
 def _bwd_xla(res, d, bg, g_o2, g_d2, g_thr2, g_rad2, mat_types):
-    """XLA variant of the per-lane backward chains (RPT_FBD_BWD=xla):
-    the same closed-form math as _bwd_kernel, left to XLA's fuser —
-    kept for A/B and as the interpreter-free fallback.  Column tuples
-    in/out like _bwd_call (internally (R, 3) for brevity)."""
-    R = d[0].shape[0]
+    """The per-lane backward chains of the closed-form VJP, left to
+    XLA's fuser: residual + cotangent columns in, (g_o, g_d, g_thr)
+    column triples out (internally (R, 3) for brevity)."""
     d = jnp.stack(d, 1)
     g_o2 = jnp.stack(g_o2, 1)
     g_d2 = jnp.stack(g_d2, 1)
     g_thr2 = jnp.stack(g_thr2, 1)
     g_rad2 = jnp.stack(g_rad2, 1)
 
-    def up(x):
-        # residual planes may be bf16 (RPT_FBD_RES=bf16) — upcast
-        col = x.reshape(-1)[:R]
+    def up(col):
+        # residuals may be bf16 (RPT_FBD_RES=bf16) — upcast
         return col.astype(jnp.float32) if col.dtype != jnp.int32 else col
 
     t = up(res["t"])
@@ -1065,7 +730,7 @@ def _bwd_xla(res, d, bg, g_o2, g_d2, g_thr2, g_rad2, mat_types):
     val = jnp.stack([up(res["v0"]), up(res["v1"]), up(res["v2"])], 1)
     ratio = up(res["ratio"])
     invr = up(res["invr"])
-    flags = up(res["flags"])
+    flags = res["flags"]
 
     hit = _bit(flags, FLG_HIT)
     cont = _bit(flags, FLG_CONT)
@@ -1151,8 +816,7 @@ def _bwd_xla(res, d, bg, g_o2, g_d2, g_thr2, g_rad2, mat_types):
 
 
 def fused_bounce_cols_step(scene, cols, su0, su1, bu0, bu1, bu2, coin,
-                           background, t_min, differentiable,
-                           interpret=False):
+                           background, t_min, differentiable):
     """Column-native bounce for the hot scan carries (integrator
     _trace_fused_cols): 13-column state dict + 6 uniform columns in,
     columns out.  ``differentiable`` routes through the custom VJP
@@ -1163,7 +827,7 @@ def fused_bounce_cols_step(scene, cols, su0, su1, bu0, bu1, bu2, coin,
         packed = pack_prims_shaded(scene)
         bounce = _make_fused_bounce_vjp(
             scene.kinds_static, scene.mat_types, scene.tex_types,
-            float(t_min), bool(interpret),
+            float(t_min),
         )
         return bounce(cols, su0, su1, bu0, bu1, bu2, coin, packed, bg)
     packed = jax.lax.stop_gradient(pack_prims_shaded(scene))
@@ -1172,16 +836,14 @@ def fused_bounce_cols_step(scene, cols, su0, su1, bu0, bu1, bu2, coin,
         packed, bg, seed, cols, su0, su1, bu0, bu1, bu2, coin,
         kinds=scene.kinds_static, mat_types=scene.mat_types,
         tex_types=scene.tex_types, t_min=float(t_min),
-        interpret=interpret,
     )
 
 
 def fused_bounce_diff_apply(scene, o, d, thr, rad, alive, sphere_u,
-                            ball_u, coin, background, t_min,
-                            interpret=False):
+                            ball_u, coin, background, t_min):
     """Differentiable fused bounce (custom VJP), (R, 3) AoS wrapper
     over the column-native core.  Same state-update semantics as
-    fused_bounce_apply (uniforms in, transforms in-kernel); gradients
+    fused_bounce_apply (uniforms in, transforms in the body); gradients
     flow to (o, d, thr, rad), scene.textures.color (via
     pack_prims_shaded), and background."""
     cols = dict(zip(_COL_KEYS, (
@@ -1192,7 +854,7 @@ def fused_bounce_diff_apply(scene, o, d, thr, rad, alive, sphere_u,
     c = fused_bounce_cols_step(
         scene, cols, sphere_u[:, 0], sphere_u[:, 1], ball_u[:, 0],
         ball_u[:, 1], ball_u[:, 2], coin, background, t_min,
-        differentiable=True, interpret=interpret,
+        differentiable=True,
     )
     return (
         jnp.stack([c["o0"], c["o1"], c["o2"]], 1),
@@ -1211,36 +873,32 @@ def fused_bounce_diff_apply(scene, o, d, thr, rad, alive, sphere_u,
 # to jax's lax.scan transpose: per bounce it re-marshals 13 cotangent
 # columns through the scan carry, saves/restores the closure residuals,
 # transposes the roulette lax.cond, and stacks zero cotangents for the
-# hoisted uniform xs.  Measured round 5 (tools/tpu_fbdecomp.py,
-# CornellBox 512^2 bench step): diff fwd 34.2 ms but probe_zero (bwd
-# returns zeros immediately) is 44.5 ms — ~10 ms of pure machinery —
-# and the full step is 67.6 ms.  This VJP replaces the whole
-# scan-of-custom-vjps with ONE custom_vjp around the entire bounce
-# loop: the forward is the same fused-kernel scan (bitwise-identical
-# primal, incl. roulette and stats), the backward is a hand-written
-# reversed lax.scan whose carry is exactly (13 cotangent columns,
-# d_packed, d_bg) and whose per-bounce body is the shared closed-form
-# _bounce_grads + an unconditional roulette transpose (the identity
-# branch saved p=1/act=0, so where(act, 1/p, 1) covers both branches
-# with no lax.cond).  Stats (segments/occupancy) are detached — same
-# effective gradients as the AD path, where their cotangents die at
-# the discrete alive chain.  RPT_FBD_SCAN=jax restores the lax.scan
-# transpose path.
+# hoisted uniform xs.  This VJP replaces the whole scan-of-custom-vjps
+# with ONE custom_vjp around the entire bounce loop: the forward is the
+# same fused-body scan (bitwise-identical primal, incl. roulette and
+# stats), the backward is a hand-written reversed lax.scan whose carry
+# is exactly (13 cotangent columns, d_packed, d_bg) and whose
+# per-bounce body is the shared closed-form _bounce_grads + an
+# unconditional roulette transpose (the identity branch saved p=1/act=0,
+# so where(act, 1/p, 1) covers both branches with no lax.cond).  Stats
+# (segments/occupancy) are detached — same effective gradients as the
+# AD path, where their cotangents die at the discrete alive chain.
+# RPT_FBD_SCAN=jax restores the lax.scan transpose path.
 
 
 @functools.lru_cache(maxsize=None)
-def _make_fused_scan_vjp(kinds, mat_types, tex_types, t_min, interpret,
+def _make_fused_scan_vjp(kinds, mat_types, tex_types, t_min,
                          max_bounces, rr_start, stats_slots, unroll):
     P = len(kinds)
     has_rr = rr_start < max_bounces
 
-    def run_kernel(cols, su0, su1, bu0, bu1, bu2, cn, packed, bg,
+    def run_body(cols, su0, su1, bu0, bu1, bu2, cn, packed, bg,
                    want_res):
         seed = jnp.zeros((1,), jnp.uint32)  # perlin is gated out here
         return _fused_bounce_cols(
             packed, bg, seed, cols, su0, su1, bu0, bu1, bu2, cn,
             kinds=kinds, mat_types=mat_types, tex_types=tex_types,
-            t_min=t_min, interpret=interpret, want_residuals=want_res,
+            t_min=t_min, want_residuals=want_res,
         )
 
     def fwd_body(carry, x, packed, bg, want_res):
@@ -1255,7 +913,7 @@ def _make_fused_scan_vjp(kinds, mat_types, tex_types, t_min, interpret,
         su, bu, cn = x["sphere_u"], x["ball_u"], x["coin"]
         d_in = (cols["d0"], cols["d1"], cols["d2"])
         thr_in = (cols["t0"], cols["t1"], cols["t2"])
-        out = run_kernel(cols, su[:, 0], su[:, 1], bu[:, 0], bu[:, 1],
+        out = run_body(cols, su[:, 0], su[:, 1], bu[:, 0], bu[:, 1],
                          bu[:, 2], cn, packed, bg, want_res)
         cols2, res = out if want_res else (out, None)
 
@@ -1331,12 +989,6 @@ def _make_fused_scan_vjp(kinds, mat_types, tex_types, t_min, interpret,
             lambda a: jnp.zeros_like(a) + zs, draws
         )
 
-        probe = os.environ.get("RPT_FBD_PROBE", "")
-        if probe == "zero":
-            return ({k: zr for k in _COL_KEYS},
-                    jnp.zeros_like(packed), jnp.zeros_like(bg),
-                    g_draws)
-
         def body(carry, y):
             g, gp, gbg = carry
             if has_rr:
@@ -1358,7 +1010,7 @@ def _make_fused_scan_vjp(kinds, mat_types, tex_types, t_min, interpret,
             g_rad2 = (g["r0"], g["r1"], g["r2"])
             g_o, g_d, g_thr, gp_b, gbg_b = _bounce_grads(
                 res_b, d_b, thr_b, bg, g_o2, g_d2, gt, g_rad2, packed,
-                P, mat_types, interpret, probe,
+                P, mat_types,
             )
             g2 = dict(
                 g, o0=g_o[0], o1=g_o[1], o2=g_o[2],
@@ -1382,8 +1034,7 @@ def _make_fused_scan_vjp(kinds, mat_types, tex_types, t_min, interpret,
 
 
 def fused_scan_trace(scene, cols, draws_all, background, t_min,
-                     max_bounces, rr_start, stats_slots,
-                     interpret=False, unroll=2):
+                     max_bounces, rr_start, stats_slots, unroll=2):
     """Differentiable whole-scan trace for fused-diff scenes.
 
     ``cols``: 13-column state dict (_COL_KEYS); ``draws_all``: the
@@ -1397,7 +1048,7 @@ def fused_scan_trace(scene, cols, draws_all, background, t_min,
     bg = jnp.asarray(background, jnp.float32)
     scan_all = _make_fused_scan_vjp(
         scene.kinds_static, scene.mat_types, scene.tex_types,
-        float(t_min), bool(interpret), int(max_bounces), int(rr_start),
+        float(t_min), int(max_bounces), int(rr_start),
         int(stats_slots), int(unroll),
     )
     return scan_all(cols, packed, bg, dict(draws_all))

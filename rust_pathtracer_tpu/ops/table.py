@@ -1,10 +1,11 @@
-"""Exact one-hot table lookup (MXU) for small SoA tables.
+"""Exact one-hot table lookup for small SoA tables.
 
-TPU per-lane gathers into tiny tables (materials, textures, primitive
-rows) are pathologically slow (~10ms/1M lanes, measured on v5e); a
-one-hot contraction at HIGHEST precision computes the same lookup on
-the MXU in ~1.5ms and is bitwise exact for f32 payloads (verified
-on-chip).  Used for every per-lane table access in the shading path.
+Per-lane reads of tiny tables (materials, textures, primitive rows)
+go through a one-hot contraction at HIGHEST precision: bitwise exact
+for f32 payloads and differentiable w.r.t. the table.  Used for every
+per-lane table access in the composed shading path.  (Chosen on a
+TPU, where gathers were slow; whether plain gathers are cheaper on the
+GPU is not yet measured.)
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ def lookup(idx, *columns):
     """Row lookup ``tuple(col[idx] for col in columns)``.
 
     idx: (R,) int; each column: (N,) or (N, K) array.  Uses a one-hot
-    MXU contraction when N <= ONEHOT_MAX_ROWS, gathers otherwise.
+    contraction when N <= ONEHOT_MAX_ROWS, gathers otherwise.
     Integer columns round-trip exactly (one-hot sums are exact).
     """
     n = columns[0].shape[0]

@@ -1,7 +1,7 @@
 """Device mesh construction + multi-host bring-up.
 
 The reference's only parallelism is rayon's shared-memory work stealing
-over pixels (renderer.rs:14-18).  The TPU framework scales the same two
+over pixels (renderer.rs:14-18).  The framework scales the same two
 axes the renderer exposes — pixels and samples — across a
 ``jax.sharding.Mesh``:
 

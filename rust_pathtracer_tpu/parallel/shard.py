@@ -7,7 +7,7 @@ device mesh:
   only its tile of the image (scene tables replicate; they are small);
 * the spp loop splits over the ``samples`` axis — each samples-group
   traces a disjoint sample range for the same pixels and partial sums
-  are combined with one ``lax.psum`` (an XLA collective riding ICI);
+  are combined with one ``lax.psum`` (an XLA collective; NCCL on GPUs);
 * the counter-based RNG (render.py) keys off (pixel, sample) globally,
   so the sharded image is bitwise-identical to the single-device one.
 """
@@ -218,7 +218,6 @@ def render_radiance_sharded(
         AUTO_MARGIN,
         CascadeOverflowError,
         _derive_cascade_schedule,
-        _maybe_prepend_reorder,
     )
 
     auto = (
@@ -247,13 +246,19 @@ def render_radiance_sharded(
         return plan0.finalize(a0, s0, b0, o0)
 
     om0_host = np.asarray(om0)
+
+    def chunk0_totals():
+        # _run_chunks DONATES the accumulator it is handed: each
+        # attempt gets its own copy of chunk 0's, so an overflow retry
+        # (or the plain fallback) never reads a consumed buffer
+        return jnp.copy(a0), s0, b0, o0
+
     margin = AUTO_MARGIN
     for _attempt in range(3):
         sched = _derive_cascade_schedule(
             om0_host, plan0.lanes_per_shard, settings.max_bounces,
             margin=margin,
         )
-        sched = _maybe_prepend_reorder(sched, scene)
         if sched is None:
             break  # no boundary pays: plain path for the rest
         plan1 = ShardedChunkPlan(
@@ -264,7 +269,7 @@ def render_radiance_sharded(
         )
         if not plan1.cascade_stages:
             break
-        totals = _run_chunks(plan1, 1, (a0, s0, b0, o0))
+        totals = _run_chunks(plan1, 1, chunk0_totals())
         # overflow = the CASCADED chunks' guard slot only: chunk 0 ran
         # on the plain path, where occupancy[-1] is a real alive count
         # whenever max_bounces >= MAX_BOUNCE_STATS - 1 (the histogram
@@ -280,5 +285,5 @@ def render_radiance_sharded(
         )
         margin *= 2.0
 
-    totals = _run_chunks(plan0, 1, (a0, s0, b0, o0))
+    totals = _run_chunks(plan0, 1, chunk0_totals())
     return plan0.finalize(*totals)

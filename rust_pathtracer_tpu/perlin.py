@@ -2,16 +2,15 @@
 
 The reference delegates to the ``noise`` crate with a *random* seed per
 run (texture.rs:55), which makes its perlin scenes unreproducible.  The
-TPU framework fixes the seed (default 0) so images are deterministic,
-and evaluates noise fully vectorized over ``(..., 3)`` point batches.
+framework fixes the seed (default 0) so images are deterministic, and
+evaluates noise fully vectorized over ``(..., 3)`` point batches.
 
-TPU note: the classic permutation-table hash chain
-``perm[perm[perm[ix] + iy] + iz]`` is three *serial per-lane gathers*
-per corner — pathologically slow on the TPU vector unit (measured
-~100x the cost of the rest of the texture path on LightTest).  This
+The classic permutation-table hash chain ``perm[perm[perm[ix] + iy] +
+iz]`` is three *serial per-lane gathers* per corner.  This
 implementation replaces the table with an arithmetic integer hash
 (multiply-xorshift mix of the lattice coordinates + seed) computed
-entirely in VPU registers.  Corner gradients, quintic fade, and
+entirely in registers — which is also what lets the fused bounce
+evaluate it per lane with no table lookup.  Corner gradients, quintic fade, and
 trilinear blending are the standard improved-Perlin construction, so
 zero-at-lattice and C1 continuity are preserved; only the (already
 seed-dependent) hash values differ from the ``noise`` crate.
@@ -35,7 +34,7 @@ def _fade(t):
 
 
 def _hash3(ix, iy, iz, seed):
-    """Arithmetic lattice hash -> uint32; gather-free (VPU only).
+    """Arithmetic lattice hash -> uint32; gather-free (registers only).
 
     lowbias32-style finalizer over a multiplicative combine of the
     three lattice coordinates.  Adjacent cells sharing a corner see the
@@ -78,8 +77,8 @@ def noise3_planes(pxp, pyp, pzp, seed=0):
     """noise3 on separate component planes (any matching shapes).
 
     Same math bit-for-bit as the stacked entry point; the plane form is
-    what the fused Pallas bounce kernel calls (ops/fused_bounce.py), so
-    the texture path has ONE implementation on and off chip.
+    what the fused bounce calls (ops/fused_bounce.py), so the texture
+    path has ONE implementation in the fused and the composed bounce.
     """
     seed = jnp.asarray(seed, jnp.uint32)
     xf, yf, zf = jnp.floor(pxp), jnp.floor(pyp), jnp.floor(pzp)

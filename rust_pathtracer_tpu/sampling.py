@@ -3,7 +3,7 @@
 The reference draws from a mutable per-thread RNG with rejection loops
 (``random_in_unitsphere`` vec3.rs:41-49, ``random_in_unitdisk_xy``
 vec3.rs:55-67), which is nondeterministic run-to-run and does not
-vectorize.  The TPU design replaces both ideas:
+vectorize.  The wavefront design replaces both ideas:
 
 * **Counter-based keys** — every ray lane owns a threefry key derived
   from ``fold_in(base_key, pixel_id * spp + sample_id)``.  Images are
@@ -130,31 +130,24 @@ def in_unit_disk_xy(keys):
 # ---------------------------------------------------------------------------
 #
 # The per-purpose scheme above costs ~5.3 threefry-block-equivalents
-# per lane-bounce (a fold_in chain per purpose + a generate each):
-# measured 16.6 ms for 20 bounces x 1M lanes on v5e — ~70% of a fused
-# CornellBox chunk and ~60% of the nondiff forward (round 5,
-# DESIGN.md §14).  The packed layout below draws the SAME
-# distributions from 4 blocks: the lane key itself is the threefry
-# key (unique per (pixel, sample) — chunk/shard/resume invariance
-# preserved), the counter words are (bounce, block j) — a 64-bit
-# counter space, no fold chains.  12.6 ms measured for the same
-# volume (the remaining cost is the spec's 20 rounds of VPU integer
-# ops — compute-bound).
+# per lane-bounce (a fold_in chain per purpose + a generate each).
+# The packed layout below draws the SAME distributions from 4 blocks:
+# the lane key itself is the threefry key (unique per (pixel, sample)
+# — chunk/shard/resume invariance preserved), the counter words are
+# (bounce, block j) — a 64-bit counter space, no fold chains.
 #
 # Streams never collide with the legacy per-purpose draws: those
 # generate under fold_in-DERIVED keys, these under the raw lane key —
 # distinct threefry keys.  Pixel jitter and lens draws (bounce 0,
 # amortized over the whole path) stay on the legacy scheme.
 #
-# VERDICT (round 5, measured IN-STEP on v5e — standalone RNG probes
-# under-measure via DCE when only one output is fetched): packed is
-# -3.6 ms on the diff fwd+bwd step (53.7 -> 50.1) but +2.2 ms on the
-# nondiff step (27.8 -> 30.0), which regressed every judged frame
-# ~+14% (CornellBox 5.83 -> 6.63 s).  The nondiff forward dominates
-# production rendering, so the DEFAULT stays legacy; packed remains
-# opt-in (RPT_RNG_SCHEME=packed) for gradient-dominated workloads.
-# A packed run uses a different stream (goldens would shift; the
-# estimator is unchanged — 4-key means agree to 0.04%).
+# Packed was a trade on the machine it was written for: cheaper in
+# the diff step, dearer in the nondiff forward that dominates
+# production rendering — so the DEFAULT stays legacy; packed remains
+# opt-in (RPT_RNG_SCHEME=packed).  Not yet measured on the GPU.  A
+# packed run uses a different stream (goldens would shift; the
+# estimator is unchanged).  Time RNG draws in-step: standalone probes
+# under-measure via dead-code elimination.
 
 _TF_C240 = 0x1BD11BDA
 _ROT_EVEN = (13, 15, 26, 6)
@@ -214,9 +207,10 @@ def bounce_draws(lkeys, bounce, with_roulette):
 
     The single chooser every draw site goes through (chunked scan,
     fused-cols scan, regen wavefront, resume paths), so the estimator
-    can never mix schemes within a render.  RPT_RNG_SCHEME=packed
-    (default) = counter-mode 4-block draws; =legacy = the per-purpose
-    fold chains.  Returns (sphere_u, ball_u, coin, roulette|None).
+    can never mix schemes within a render.  RPT_RNG_SCHEME=legacy
+    (default) = the per-purpose fold chains; =packed = the opt-in
+    counter-mode 4-block draws (a different stream).  Returns
+    (sphere_u, ball_u, coin, roulette|None).
     """
     import os
 

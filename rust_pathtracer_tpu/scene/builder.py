@@ -45,8 +45,9 @@ _RECT_NAME_TO_AXIS = {"yz": 0, "xz": 1, "xy": 2}
 
 ColorLike = Union[Sequence[float], np.ndarray]
 
-# Brute-force closest hit beats BVH traversal below this primitive count
-# on TPU (everything fits in VMEM and there is zero divergence).
+# Brute-force closest hit is used below this primitive count (a
+# regular, divergence-free sweep; set on a 16 GB TPU, not yet measured
+# on the card), BVH traversal above it.
 BVH_AUTO_THRESHOLD = 64
 
 
@@ -355,36 +356,7 @@ class SceneBuilder:
             images = np.zeros((1, 1, 1, 3), np.float32)
             image_hw = np.ones((1, 2), np.int32)
 
-        # TPU kernel routing data (closest_hit picks per backend):
-        # small scenes carry the static kind tuple for the unrolled v1
-        # sweep; everything larger carries projected-sweep (v2 MXU)
-        # tables — both coexist with the BVH used by the CPU path.
-        from rust_pathtracer_tpu.ops.pallas_intersect import MAX_PALLAS_PRIMS
-
-        proj = None
-        if len(prim_kind) > MAX_PALLAS_PRIMS:
-            from rust_pathtracer_tpu.ops.projected import build_projected
-
-            proj = build_projected(
-                prim_kind, prim_aux, prim_data, prim_mat,
-                mats=(
-                    np.asarray(self._mat_kind, np.int32),
-                    np.asarray(self._mat_tex, np.int32),
-                    np.asarray(self._mat_fuzz, np.float32),
-                    np.asarray(self._mat_ir, np.float32),
-                ),
-                texs=(
-                    np.asarray(self._tex_kind, np.int32),
-                    np.stack(self._tex_color)
-                    if self._tex_color else np.zeros((1, 3), np.float32),
-                    np.asarray(self._tex_child, np.int32).reshape(-1, 2)
-                    if self._tex_child else np.zeros((1, 2), np.int32),
-                    np.asarray(self._tex_scale, np.float32)
-                    if self._tex_scale else np.zeros(1, np.float32),
-                    np.asarray(self._tex_image, np.int32)
-                    if self._tex_image else np.zeros(1, np.int32),
-                ),
-            )
+        from rust_pathtracer_tpu.ops.intersect import MAX_STATIC_PRIMS
 
         # static checker nesting depth: how many child-resolution steps
         # the evaluator must unroll (texture ids only reference earlier
@@ -398,7 +370,7 @@ class SceneBuilder:
 
         # shading is table-free (fused-bounce eligible) when every
         # texture is solid / perlin / checker whose children are both
-        # solid leaves (same rule as build_projected's shade_ready)
+        # solid leaves
         shade_static = all(
             k in (TEX_SOLID, TEX_PERLIN)
             or (
@@ -419,11 +391,10 @@ class SceneBuilder:
                 tuple(
                     (int(k), int(a)) for k, a in zip(prim_kind, prim_aux)
                 )
-                if len(prim_kind) <= MAX_PALLAS_PRIMS
+                if len(prim_kind) <= MAX_STATIC_PRIMS
                 else None
             ),
             shade_static=shade_static,
-            proj=proj,
             prims=Primitives(
                 kind=jnp.asarray(prim_kind),
                 mat=jnp.asarray(prim_mat),

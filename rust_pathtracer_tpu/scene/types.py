@@ -3,7 +3,7 @@
 The reference keeps a heterogeneous pointer soup — ``Box<dyn Hittable>``
 primitives holding ``Arc<dyn Material>`` holding ``Box<dyn Texture>``
 (geometry.rs:104+, material.rs:24+, texture.rs:9+).  Dynamic dispatch
-does not exist on a TPU vector unit, so the framework flattens the
+does not exist in a vectorized wavefront, so the framework flattens the
 whole scene into typed tables indexed by small integers:
 
   Primitives.kind/mat/aux/data  — one row per sphere/rect/triangle
@@ -119,22 +119,19 @@ class SceneData:
         default=(MAT_LAMBERTIAN, MAT_METAL, MAT_DIELECTRIC, MAT_LIGHT),
         metadata=dict(static=True),
     )
-    # per-primitive (kind, aux) tuple for SMALL scenes: lets the Pallas
-    # closest-hit kernel unroll one statically-typed test per primitive
-    # (None for BVH-sized scenes)
+    # per-primitive (kind, aux) tuple for SMALL scenes: lets the static
+    # sweep / fused bounce unroll one statically-typed test per
+    # primitive (None beyond ops/intersect.MAX_STATIC_PRIMS)
     kinds_static: Optional[Tuple[Tuple[int, int], ...]] = dataclasses.field(
         default=None, metadata=dict(static=True)
     )
     # True when every texture is solid / checker-of-solids / perlin —
     # the whole shading row is then table-free in-register math, which
-    # lets the fused Pallas bounce kernel (ops/fused_bounce.py) run the
+    # lets the fused bounce (ops/fused_bounce.py) run the
     # entire bounce in one kernel for kinds_static scenes
     shade_static: bool = dataclasses.field(
         default=False, metadata=dict(static=True)
     )
-    # projected-sweep tables (ops/projected.ProjTables) for scenes past
-    # the unrolled-sweep size; None on small scenes / when unused
-    proj: Optional[object] = None
 
     @property
     def num_prims(self) -> int:

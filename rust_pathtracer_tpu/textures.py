@@ -70,36 +70,6 @@ def eval_texture(textures: Textures, tex_id, u, v, point, tex_types=None,
     return out
 
 
-def eval_texture_payload(textures: Textures, row, u, v, point, tex_types=None):
-    """Texture value from a projected-payload shading row — no table
-    lookups (see ops/projected.py PAY_* layout; ``row`` columns are
-    [mat_kind, fuzz, ir, tex_kind, scale, color*3, odd*3, even*3,
-    image_id, spare]).  Semantics identical to eval_texture with
-    checker children restricted to solid leaves (guaranteed by the
-    builder's ``shade_ready`` flag)."""
-    types = tex_types if tex_types is not None else (0, 1, 2, 3)
-    kind = jnp.round(row[:, 3]).astype(jnp.int32)
-    scale = row[:, 4]
-    out = row[:, 5:8]  # TEX_SOLID color
-
-    if TEX_CHECKER in types:
-        s = jnp.sin(scale[..., None] * point)
-        sines = s[..., 0] * s[..., 1] * s[..., 2]
-        picked = jnp.where((sines < 0.0)[..., None], row[:, 8:11], row[:, 11:14])
-        out = jnp.where((kind == TEX_CHECKER)[..., None], picked, out)
-
-    if TEX_PERLIN in types:
-        gray = perlin_mod.marble(point, textures.perlin_seed, scale)
-        out = jnp.where((kind == TEX_PERLIN)[..., None], gray[..., None], out)
-
-    if TEX_IMAGE in types:
-        img_id = jnp.maximum(jnp.round(row[:, 14]).astype(jnp.int32), 0)
-        img_val = _sample_image_by_id(textures, img_id, u, v)
-        out = jnp.where((kind == TEX_IMAGE)[..., None], img_val, out)
-
-    return out
-
-
 def _sample_image(textures: Textures, tex_id, u, v):
     """Bilinear sample of the padded image stack.
 

@@ -1,9 +1,8 @@
 """Metrics / observability.
 
 The reference's observability is a progress bar and one stray println
-(SURVEY §5).  The framework reports the numbers BASELINE.json judges:
-rays/sec/chip, per-bounce occupancy, wall-clock per stage — plus an
-optional jax.profiler trace for roofline work.
+(SURVEY §5).  The framework reports rays/sec, per-bounce occupancy and
+wall-clock per stage, plus an optional jax.profiler trace.
 """
 
 from __future__ import annotations
@@ -54,123 +53,6 @@ class RenderMetrics:
             frac = [x / total for x in self.occupancy if x > 0][:16]
             curve = " ".join(f"{x:.2f}" for x in frac)
             print(f"[metrics] wavefront occupancy by bounce: {curve}", file=file)
-
-
-# ---------------------------------------------------------------------------
-# Roofline accounting (SURVEY §5: rays/s vs the chip's HBM/compute bounds)
-# ---------------------------------------------------------------------------
-
-# v5e single-chip peaks.  f32 matmul runs at 1/4 the bf16 MXU rate; the
-# VPU figure is 8 sublanes x 128 lanes x 4 ALUs at ~0.94 GHz.
-CHIP_PEAKS = {
-    "v5e": dict(mxu_f32=4.9e13, vpu_f32=3.9e12, hbm=8.1e11),
-}
-
-
-@dataclass
-class StageRoofline:
-    name: str
-    flops_mxu: float
-    flops_vpu: float
-    bytes_hbm: float
-
-    def sol_seconds(self, peaks) -> float:
-        """Speed-of-light time: the stage can't run faster than its most
-        contended resource allows."""
-        return max(
-            self.flops_mxu / peaks["mxu_f32"],
-            self.flops_vpu / peaks["vpu_f32"],
-            self.bytes_hbm / peaks["hbm"],
-        )
-
-    def bound(self, peaks) -> str:
-        times = {
-            "MXU": self.flops_mxu / peaks["mxu_f32"],
-            "VPU": self.flops_vpu / peaks["vpu_f32"],
-            "HBM": self.bytes_hbm / peaks["hbm"],
-        }
-        return max(times, key=times.get)
-
-
-# approximate per-unit costs (flops / bytes), documented estimates from
-# reading the kernels — coarse on purpose: the roofline states which
-# resource BINDS and the order-of-magnitude headroom, not a 2-digit SOL
-_V1_FLOPS_PER_PAIR = 30          # unrolled typed test (VPU)
-_V2_DOT_FLOPS = 8 * 2 * 6        # six (R,8)x(8,C) projections (MXU)
-_V2_FORMULA_FLOPS = 25           # per (ray, col) epilogue (VPU)
-_SHADE_FLOPS_PER_LANE = 600      # record + 4-way material + RNG (VPU)
-_STATE_BYTES_PER_LANE = 220      # wavefront state r/w per bounce (HBM)
-
-
-def bounce_roofline(scene, lanes: int, swept_fraction: float = 1.0,
-                    reorder: bool = False):
-    """Per-stage roofline for ONE bounce of ``lanes`` rays.
-
-    ``swept_fraction``: fraction of (ray block, cluster) sweeps the
-    culling does NOT skip (1.0 = dense).  Returns list[StageRoofline].
-    """
-    stages = []
-    if scene.kinds_static is not None:
-        P = scene.num_prims
-        stages.append(StageRoofline(
-            "v1 sweep", 0.0, lanes * P * _V1_FLOPS_PER_PAIR,
-            lanes * 40.0,
-        ))
-    elif scene.proj is not None:
-        C = scene.proj.num_cols
-        pairs = lanes * C * swept_fraction
-        stages.append(StageRoofline(
-            "v2 sweep",
-            pairs * _V2_DOT_FLOPS + lanes * scene.proj.col_block * 64,
-            pairs * _V2_FORMULA_FLOPS + lanes * scene.proj.col_block * 3,
-            lanes * 170.0,  # rays in, t/c/payload out
-        ))
-        if reorder:
-            import math
-
-            passes = max(math.log2(max(lanes, 2)), 1.0)
-            stages.append(StageRoofline(
-                "reorder", 0.0, lanes * 64.0,
-                lanes * (8.0 * 2 * passes + 96.0),  # sort passes + state gather
-            ))
-    else:
-        P = scene.num_prims
-        stages.append(StageRoofline(
-            "jnp sweep", 0.0, lanes * P * _V1_FLOPS_PER_PAIR,
-            lanes * P * 4.0,  # XLA materializes per-pair t columns
-        ))
-    stages.append(StageRoofline(
-        "shade+record", 0.0, lanes * _SHADE_FLOPS_PER_LANE,
-        lanes * _STATE_BYTES_PER_LANE,
-    ))
-    return stages
-
-
-def roofline_report(scene, lanes: int, bounces: float, measured_seconds: float,
-                    swept_fraction: float = 1.0, reorder: bool = False,
-                    chip: str = "v5e", backward: bool = False):
-    """Compare a measured step time against the analytic speed of light.
-
-    ``bounces``: average live-lane-weighted bounce count executed;
-    ``backward``: double compute+traffic for the reverse sweep (the
-    detached hit search does not rerun, but shading and its residual
-    traffic do — a ~2x model).  Returns a dict for printing/JSON.
-    """
-    peaks = CHIP_PEAKS[chip]
-    stages = bounce_roofline(scene, lanes, swept_fraction, reorder)
-    per_bounce = sum(s.sol_seconds(peaks) for s in stages)
-    dominant = max(stages, key=lambda s: s.sol_seconds(peaks))
-    sol = per_bounce * bounces * (2.0 if backward else 1.0)
-    return {
-        "sol_seconds": sol,
-        "sol_fraction": sol / measured_seconds if measured_seconds else 0.0,
-        "bound": f"{dominant.name}:{dominant.bound(peaks)}",
-        "stages": {
-            s.name: {"sol_ms": s.sol_seconds(peaks) * 1e3 * bounces,
-                     "bound": s.bound(peaks)}
-            for s in stages
-        },
-    }
 
 
 @dataclass

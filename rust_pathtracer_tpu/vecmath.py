@@ -1,6 +1,6 @@
 """Batched 3-vector math on ``(..., 3)`` jnp arrays.
 
-TPU-native replacement for the reference's scalar ``Vec3`` class
+Vectorized replacement for the reference's scalar ``Vec3`` class
 (vec3.rs:10-254).  There is no vector *object*: every op is a pure
 function over arrays whose trailing axis is xyz, so a whole ray
 wavefront is one SIMD value.  All ops are differentiable and guarded

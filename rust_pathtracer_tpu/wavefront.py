@@ -5,26 +5,21 @@ lockstep until ALL of them die: in deep-bounce scenes with a black
 background (LightTest: max 50 bounces, measured occupancy 5% after two
 bounces) the tail wastes >90% of the vector unit.
 
-This renderer is the TPU-shaped version of GPU "stream-compacted
-bounce queues": a fixed pool of lanes stays highly occupied because a
+This renderer is a static-shape version of "stream-compacted bounce
+queues": a fixed pool of lanes stays highly occupied because a
 lane that terminates is REFILLED with the next (pixel, sample) item
 from the global work queue — static shapes, no scatter/compact of live
 state, just an exclusive cumsum to hand out fresh work ids and one
 scatter-add to flush finished radiance into the per-pixel accumulator.
 
-AMORTIZED FLUSH (round 2): the round-1 design flushed + refilled every
-iteration, and the measured refill overhead (camera-ray spawn + RNG
-chains + cumsum + scatter-add on every lane every iteration) outweighed
-the occupancy win (LightTest 29.9 s regen vs 28.2 s chunked).  The loop
-now runs ``flush_every`` bounce iterations between flushes: finished
-lanes hold their radiance in registers (alive=False, work id kept)
-until the window ends, so the refill machinery runs 1/K as often at
-the cost of those lanes idling for at most K-1 iterations.  K=2 is
-the measured optimum on v5e (clean idle-host reps, tools/tpu_light.py:
-fe=2 6.15 s/190 iters, fe=3 11.1 s/249, fe=4 8.9 s/312 — the extra
-idle-lane iterations cost more than the saved flushes; window
-decomposition in tools/tpu_spawnprobe.py: scatter 18.9 ms, spawn 3.8,
-cumsum 2.7; the bounce body itself is 9.8 ms, tools/tpu_ltprobe.py).
+AMORTIZED FLUSH: flushing + refilling every iteration pays the refill
+machinery (camera-ray spawn + RNG chains + cumsum + scatter-add) on
+every lane every iteration.  The loop runs ``flush_every`` bounce
+iterations between flushes: finished lanes hold their radiance
+(alive=False, work id kept) until the window ends, so the refill
+machinery runs 1/K as often at the cost of those lanes idling for at
+most K-1 iterations.  K=2 is the default (set on a 16 GB TPU; not yet
+measured on the card).
 
 RNG consistency: a work item's lane key is derived from the same
 (pixel * spp + sample) counter and per-(bounce, purpose) fold as the
@@ -48,7 +43,6 @@ from rust_pathtracer_tpu.integrator import (
     MAX_BOUNCE_STATS,
     TraceStats,
     search_and_record,
-    use_wavefront_reorder,
 )
 from rust_pathtracer_tpu.materials import emitted, scatter, shade_inputs
 from rust_pathtracer_tpu.render import RenderSettings
@@ -81,27 +75,23 @@ def render_radiance_regen(
     Returns ((H, W, 3) image, TraceStats).  Equivalent estimator to
     render_radiance (same per-path RNG); accumulation order differs.
     ``flush_every``: bounce iterations between flush+refill windows
-    (default 2, the measured v5e optimum; RPT_FLUSH_EVERY overrides).
+    (default 2; RPT_FLUSH_EVERY overrides).
 
     ``mode`` (RPT_REGEN_MODE): work-handout strategy.
 
-    * "queue" — the round-2 design: a global work counter; finished
-      lanes take the next (pixel, sample) via an exclusive cumsum and
-      their radiance is scatter-added into the image accumulator every
-      window (scatter 18.9 ms + spawn 3.8 + cumsum 2.7 per window at
-      1M lanes, tools/tpu_spawnprobe.py).
+    * "queue" — a global work counter; finished lanes take the next
+      (pixel, sample) via an exclusive cumsum and their radiance is
+      scatter-added into the image accumulator every window.
     * "stripe" — each lane OWNS a fixed pixel-aligned stripe of
       consecutive work ids (pixel-major: ids p*spp+s, so one stripe =
       one pixel's sample range).  A finished lane banks its radiance
       into a lane-local pixel sum and advances to its next sample —
       no cumsum, no per-window scatter; ONE scatter-add flushes the
-      lane sums at the very end.  MEASURED NEGATIVE on v5e LightTest
-      512^2@256spp: 23.3 s vs 5.9 s queue — path depths within one
-      pixel are strongly CORRELATED (same geometry), so a worst-pixel
-      stripe drains alone for thousands of iterations (observed 2448
-      loop iters vs 190; the iid-concentration argument only holds
-      across pixels).  Kept as an opt-in documented negative.
-    * "auto" (default) — "queue" (the measured winner).
+      lane sums at the very end.  A documented negative: path depths
+      within one pixel are strongly CORRELATED (same geometry), so a
+      worst-pixel stripe drains alone for thousands of iterations (the
+      iid-concentration argument only holds across pixels).  Opt-in.
+    * "auto" (default) — "queue".
     """
     width, height = settings.width, settings.height
     spp = settings.samples_per_pixel
@@ -114,10 +104,6 @@ def render_radiance_regen(
     lanes = int(min(lanes, total))
     if lanes <= 0:
         raise ValueError(f"lane pool must be positive, got {lanes}")
-    # default 2: measured on v5e LightTest 512^2@256spp — fe=1 9.56 s
-    # (refill machinery every iteration), fe=2 6.15 s, fe=4 26.9 s
-    # (finished lanes idle up to 3 iterations; 312 loop iterations vs
-    # 190 at fe=2)
     if flush_every is None:
         flush_every = int(os.environ.get("RPT_FLUSH_EVERY", 2))
     flush_every = max(1, flush_every)
@@ -177,19 +163,12 @@ def render_radiance_regen(
         init_work = jnp.arange(lanes, dtype=jnp.int32)
     pixel0, lkeys0, o0, d0 = spawn(init_work)
 
-    reorder = use_wavefront_reorder(scene)
-
     from rust_pathtracer_tpu.ops.fused_bounce import (
-        fused_bounce_interpret,
+        fused_bounce_apply,
         fused_bounce_ok,
     )
-    from rust_pathtracer_tpu.ops.pallas_intersect import pallas_available
 
-    use_fb = (
-        not reorder
-        and fused_bounce_ok(scene)
-        and (pallas_available() or fused_bounce_interpret())
-    )
+    use_fb = fused_bounce_ok(scene)
 
     state = dict(
         work=init_work,                               # -1 => lane idle
@@ -221,54 +200,25 @@ def render_radiance_regen(
             issued=jnp.int32(lanes),
             acc=jnp.zeros((npix, 3), jnp.float32),
         )
-    if reorder:
-        state["cluster"] = jnp.zeros(lanes, jnp.int32)
-
-    _scalar_keys = ("issued", "acc", "segments", "iters", "hist")
 
     def _depth_hist(depth, finished):
         """Counts of finished lanes per (clamped) path length — a dense
-        masked reduction, NOT a scatter (78 ms at 1M lanes on v5e;
-        this is ~0.2 ms of compare+reduce traffic per flush window)."""
+        masked reduction, not a scatter."""
         bins = np.arange(MAX_BOUNCE_STATS, dtype=np.int32)
         d = jnp.minimum(depth, np.int32(MAX_BOUNCE_STATS - 1))
         m = (d[:, None] == bins[None, :]) & finished[:, None]
         return jnp.sum(m, axis=0).astype(jnp.float32)
 
-    def reorder_lanes(s):
-        """Sort the lane pool by its reorder key (pass-set bitmask by
-        default) so the projected kernel sees cluster-homogeneous ray
-        blocks (see integrator._reorder_wavefront; lanes carry their
-        pixel / RNG key / accumulator, so the estimator is unchanged).
-        Applied via ONE carried sort — per-array x[perm] gathers at 1M
-        rows are ~3x slower (tools/tpu_permgather.py)."""
-        from rust_pathtracer_tpu.integrator import reorder_keys, sort_carry
-
-        keys = reorder_keys(scene, s["o"], s["d"], s["alive"], s["cluster"])
-        names = [k for k in s if k not in _scalar_keys]
-        sorted_vals = sort_carry(keys, [s[k] for k in names])
-        out = dict(s)
-        out.update(zip(names, sorted_vals))
-        return out
-
     def bounce(s):
         """One bounce for the live lanes; finished lanes hold their
         radiance (alive=False, work kept) until the next flush."""
-        if reorder:
-            # gate like integrator._reorder_wavefront: camera rays at
-            # iteration 0 are already pixel-coherent, and during the
-            # final drain (queue empty, occupancy collapsing) sorting
-            # the full pool costs more than the coherence buys
-            n_alive = jnp.sum(s["alive"].astype(jnp.int32))
-            want = (s["iters"] > 0) & (n_alive * 64 > lanes)
-            s = jax.lax.cond(want, reorder_lanes, lambda x: x, s)
         o, d, thr, rad = s["o"], s["d"], s["thr"], s["rad"]
         alive, depth, lkeys = s["alive"], s["depth"], s["lkeys"]
         segments = s["segments"] + jnp.sum(alive.astype(jnp.float32))
 
         # per-lane path depth drives the RNG counter (matches chunked
         # mode: sampling.bounce_draws, same scheme both paths).
-        # Uniforms only here: the fused kernel transforms in-kernel;
+        # Uniforms only here: the fused body transforms them itself;
         # the composed branch transforms below.  Roulette's draw
         # shares the same 4 threefry blocks (packed scheme).
         sphere_u, ball_u, coin, rl_u = sampling.bounce_draws(
@@ -279,29 +229,21 @@ def render_radiance_regen(
         depth = depth + alive.astype(jnp.int32)
         depth_ok = depth < max_bounces
         if use_fb:
-            # fused whole-bounce kernel (ops/fused_bounce.py).  The
-            # kernel commits o/d/thr with its own cont (no depth cap);
+            # fused whole bounce (ops/fused_bounce.py).  The
+            # fused body commits o/d/thr with its own cont (no depth cap);
             # lanes the cap kills below are dead either way and their
             # state is never read again (flush uses rad+work only,
             # respawn overwrites), so the estimator is unchanged.
             from rust_pathtracer_tpu.integrator import T_MIN
-            from rust_pathtracer_tpu.ops.fused_bounce import (
-                fused_bounce_apply,
-            )
-            from rust_pathtracer_tpu.ops.pallas_intersect import (
-                pallas_available,
-            )
 
             o, d, thr, rad, cont_k = fused_bounce_apply(
                 scene, o, d, thr, rad, alive, sphere_u, ball_u, coin,
-                bg, T_MIN, interpret=not pallas_available(),
+                bg, T_MIN,
             )
             cont = cont_k & depth_ok
         else:
-            hit_mask, rec, shade_row, _cl = search_and_record(
-                scene, o, d, alive
-            )
-            si = shade_inputs(scene, rec, shade_row)
+            hit_mask, rec = search_and_record(scene, o, d, alive)
+            si = shade_inputs(scene, rec)
 
             miss = alive & ~hit_mask
             rad = rad + jnp.where(miss[..., None], thr * bg, 0.0)
@@ -330,24 +272,15 @@ def render_radiance_regen(
                             thr / p[..., None], thr)
             cont = cont & (~sel | survive)
 
-        out = dict(
+        return dict(
             s, o=o, d=d, thr=thr, rad=rad, depth=depth, alive=cont,
             segments=segments, iters=s["iters"] + 1,
         )
-        if reorder:
-            out["cluster"] = jnp.where(hit_mask, _cl, 0)
-        return out
 
-    # Flush variant (RPT_REGEN_FLUSH).  Measured on v5e (LightTest
-    # 512^2@256spp, flush_every=2, 95 windows, clean idle-host reps):
-    # "scatter" (plain colliding scatter-add) 6.15 s vs "sorted"
-    # (key/value lax.sort + indices_are_sorted scatter) 6.16 s — a
-    # wash in-pipeline even though the isolated microbench favors
-    # sorted 14.5 vs 18.6 ms (tools/tpu_scatter3.py; XLA overlaps the
-    # colliding scatter with the window's other work), so the plain
-    # scatter stays the default.  "none" skips accumulation entirely
-    # (BIASED — probe-only, for isolating the flush cost in
-    # tools/tpu_light.py decompositions).
+    # Flush variant (RPT_REGEN_FLUSH): "scatter" (plain colliding
+    # scatter-add, default) or "sorted" (key/value lax.sort +
+    # indices_are_sorted scatter; same result).  "none" skips
+    # accumulation entirely (BIASED — for isolating the flush cost).
     flush_mode = os.environ.get("RPT_REGEN_FLUSH", "scatter")
     if flush_mode not in ("scatter", "sorted", "none"):
         raise ValueError(f"RPT_REGEN_FLUSH={flush_mode!r}")
@@ -396,17 +329,11 @@ def render_radiance_regen(
         rad = vm.where(take, jnp.zeros_like(s["rad"]), s["rad"])
         depth = jnp.where(take, 0, s["depth"])
         work = jnp.where(take, new_work, jnp.where(finished, -1, work))
-        out = dict(
+        return dict(
             s, work=work, pixel=pixel, lkeys=lkeys, o=o, d=d, thr=thr,
             rad=rad, depth=depth, alive=s["alive"] | take, issued=issued,
             acc=acc, hist=hist,
         )
-        if reorder:
-            # refilled lanes are fresh camera rays: drop the previous
-            # path's STALE cluster so the next reorder doesn't bin them
-            # by a scene region they no longer occupy
-            out["cluster"] = jnp.where(take, 0, s["cluster"])
-        return out
 
     def advance_stripe(s):
         """Bank finished lanes' radiance into their lane-local pixel
@@ -428,15 +355,12 @@ def render_radiance_regen(
         rad = vm.where(take, jnp.zeros_like(s["rad"]), s["rad"])
         depth = jnp.where(take, 0, s["depth"])
         work = jnp.where(take, new_work, jnp.where(finished, -1, work))
-        out = dict(
+        return dict(
             s, work=work, pixel=pixel, lkeys=lkeys, o=o, d=d, thr=thr,
             rad=rad, depth=depth, alive=alive | take,
             nxt=s["nxt"] + take.astype(jnp.int32), acc_lane=acc_lane,
             hist=hist,
         )
-        if reorder:
-            out["cluster"] = jnp.where(take, 0, s["cluster"])
-        return out
 
     def cond(s):
         # pending = finished-but-unflushed; loop runs until every path

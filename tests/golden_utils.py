@@ -17,22 +17,22 @@ rounds can distinguish intended ulp drift from real regressions):
   a transcendental can differ by 1 ulp across fusion contexts; over
   10+ bounces that flips an occasional discrete decision (hit/miss,
   absorb) in a handful of lanes.  Max golden drift observed: 1.5e-6.
-  NOT an energy/orientation change — kernel-parity (Pallas == jnp)
-  and the independent f64 oracle tests (tests/test_oracle_parity.py)
-  pinned the estimator through the change; those carry the real
-  correctness weight (DESIGN.md §13 "RNG-hoist trap").
+  NOT an energy/orientation change — the independent f64 oracle tests
+  (tests/test_oracle_parity.py) pinned the estimator through the
+  change (DESIGN.md §13 "RNG-hoist trap").
+* CornellBox, LightTest and TwoSphereCheckers regenerated when the
+  fused whole bounce (ops/fused_bounce.bounce_body, left to XLA)
+  became the route for small table-free scenes on every backend,
+  the CPU included.  Its floats differ from the composed path's by
+  ulps (other fusions); an occasional flipped discrete decision
+  reroutes a path.  Drift against the old anchors: max |d| 0.028 /
+  5.4e-4 / 0.056, mean |d| 3.2e-6 / 2.1e-6 / 3.4e-5, image means
+  0.157195 -> 0.157192, 0.101124 -> 0.101124, 0.403512 -> 0.403534.
+  The f64 oracle tests pinned the estimator through the change.
 
-* round 5: ALL anchors regenerated when the packed counter-mode
-  scatter draws became the default (RPT_RNG_SCHEME=packed,
-  sampling.scatter_uniforms): a NEW RNG stream (4 threefry blocks per
-  lane-bounce instead of per-purpose fold chains — the fold chains
-  were ~60% of the nondiff forward on v5e, DESIGN.md §14).  Same
-  distributions, same estimator: packed vs legacy CornellBox means
-  agree to 0.04% over 4 keys, the oracle gate passes against a
-  3-seed-averaged anchor, and every cross-path identity (regen ==
-  chunked, cascade == plain, sharded == single) holds bitwise within
-  the scheme.  RPT_RNG_SCHEME=legacy reproduces the old stream (and
-  the round-4 goldens) exactly.
+The anchors come from the default (legacy) RNG stream; the opt-in
+packed scheme (RPT_RNG_SCHEME=packed) draws a different stream and
+does not match them.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Implements the reference semantics (ray.rs / geometry.rs / material.rs)
 directly in numpy, sharing NO code with rust_pathtracer_tpu: scalar-ish
 recursion flattened over a sample batch, f64 throughout, numpy RNG with
-true rejection sampling.  Used to validate the TPU framework's images
+true rejection sampling.  Used to validate the framework's images
 statistically (same scene -> same expected radiance within MC error).
 """
 

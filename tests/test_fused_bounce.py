@@ -1,10 +1,12 @@
-"""Fused whole-bounce Pallas kernel vs the composed jnp path.
+"""Fused whole bounce vs the composed jnp path.
 
-The kernel (ops/fused_bounce.py) runs search + record + texture +
-scatter + state commit in one pallas_call.  Contract (same as the v1
-intersect kernels): hit/alive masks EXACT, floats to fusion-rounding
-tolerance.  CPU tests exercise the exact kernel via the Pallas
-interpreter (RPT_FB_INTERPRET=1).
+The fused bounce (ops/fused_bounce.py) runs search + record + texture +
+scatter + state commit as one function left to XLA; it is the route
+for small table-free scenes on every backend.  Contract vs the
+composed path: hit/alive masks EXACT, floats to fusion-rounding
+tolerance.  The reference here is the composed path on the same scene,
+reached by routing the scene off the fused bounce
+(``fused_bounce_ok`` patched to refuse it).
 """
 
 import jax
@@ -16,9 +18,29 @@ import pytest
 from rust_pathtracer_tpu import sampling
 from rust_pathtracer_tpu.integrator import trace
 from rust_pathtracer_tpu.models import get_scene
+from rust_pathtracer_tpu.ops import fused_bounce as fb
 from rust_pathtracer_tpu.scene.builder import SceneBuilder
 
 KEY = jax.random.PRNGKey(7)
+
+
+_FUSED_OK = fb.fused_bounce_ok
+
+
+def _route(monkeypatch, fused):
+    """Route eligible scenes through the fused bounce (the default) or
+    the composed path, and drop jit caches traced under the other."""
+    monkeypatch.setattr(fb, "fused_bounce_ok",
+                        _FUSED_OK if fused else (lambda scene: False))
+    jax.clear_caches()
+
+
+@pytest.fixture(autouse=True)
+def _no_route_leak():
+    """A test that stops under the composed route leaves no jit cache
+    traced under it."""
+    yield
+    jax.clear_caches()
 
 
 def _lane_keys(n, seed=0):
@@ -29,7 +51,7 @@ def _lane_keys(n, seed=0):
 
 def _full_scene():
     """Every material kind + solid/checker/perlin textures + every
-    primitive kind — the fused kernel's whole routing surface."""
+    primitive kind — the fused bounce's whole routing surface."""
     b = SceneBuilder()
     checker = b.checker_texture(
         b.solid_texture((0.2, 0.3, 0.1)), b.solid_texture((0.9, 0.9, 0.9))
@@ -75,11 +97,10 @@ def test_scene_flags():
 
 
 def _compare_diverging(rad0, rad1, st0, st1, max_flip_frac=0.02):
-    """Multi-bounce kernel-vs-jnp comparison.
+    """Multi-bounce fused-vs-composed comparison.
 
-    Like the v1 intersect kernel, the fused kernel's floats agree with
-    the jnp path only to a few ulp (different fusions) — and over
-    multiple bounces an ulp flip of a DISCRETE choice (dielectric coin,
+    The fused bounce's floats agree with the composed path only to a
+    few ulp (different fusions) — and over multiple bounces an ulp flip of a DISCRETE choice (dielectric coin,
     metal grazing test) reroutes that lane's whole path.  So the
     contract here is statistical: almost every lane identical to
     tolerance, a tiny flipped fraction allowed, means tight, segment
@@ -96,18 +117,16 @@ def _compare_diverging(rad0, rad1, st0, st1, max_flip_frac=0.02):
 
 
 def test_fused_bounce_matches_trace(monkeypatch):
-    """Full multi-bounce trace through the interpreter-mode kernel vs
-    the jnp path: statistically identical (see _compare_diverging)."""
+    """Full multi-bounce trace through the fused bounce vs the
+    composed path: statistically identical (see _compare_diverging)."""
     scene = _full_scene()
     o, d = _rays(192)
     keys = _lane_keys(192)
     bg = (0.3, 0.4, 0.5)
+    _route(monkeypatch, False)
     rad0, st0 = trace(scene, o, d, keys, bg, max_bounces=8)
-    monkeypatch.setenv("RPT_FB_INTERPRET", "1")
-    jax.clear_caches()
+    _route(monkeypatch, True)
     rad1, st1 = trace(scene, o, d, keys, bg, max_bounces=8)
-    monkeypatch.delenv("RPT_FB_INTERPRET")
-    jax.clear_caches()
     _compare_diverging(rad0, rad1, st0, st1)
 
 
@@ -116,14 +135,12 @@ def test_fused_bounce_roulette_matches(monkeypatch):
     o, d = _rays(128)
     keys = _lane_keys(128, seed=3)
     bg = (0.1, 0.1, 0.1)
+    _route(monkeypatch, False)
     rad0, st0 = trace(scene, o, d, keys, bg, max_bounces=10,
                       russian_roulette_start=3)
-    monkeypatch.setenv("RPT_FB_INTERPRET", "1")
-    jax.clear_caches()
+    _route(monkeypatch, True)
     rad1, st1 = trace(scene, o, d, keys, bg, max_bounces=10,
                       russian_roulette_start=3)
-    monkeypatch.delenv("RPT_FB_INTERPRET")
-    jax.clear_caches()
     _compare_diverging(rad0, rad1, st0, st1)
 
 
@@ -143,12 +160,10 @@ def test_fused_bounce_single_step_exact_masks(monkeypatch):
         occupancy=jnp.zeros((MAX_BOUNCE_STATS,), jnp.float32),
     )
     bg = jnp.asarray((0.2, 0.1, 0.05), jnp.float32)
+    _route(monkeypatch, False)
     out0 = _bounce_step(scene, keys, bg, 99, dict(state), jnp.int32(0))
-    monkeypatch.setenv("RPT_FB_INTERPRET", "1")
-    jax.clear_caches()
+    _route(monkeypatch, True)
     out1 = _bounce_step(scene, keys, bg, 99, dict(state), jnp.int32(0))
-    monkeypatch.delenv("RPT_FB_INTERPRET")
-    jax.clear_caches()
     assert np.array_equal(np.asarray(out1["alive"]), np.asarray(out0["alive"]))
     # float tolerance: the two compilations contract FMAs differently;
     # the r=100 ground sphere's |oc|^2 - r^2 cancellation amplifies a
@@ -162,19 +177,17 @@ def test_fused_bounce_single_step_exact_masks(monkeypatch):
 
 
 def test_fused_bounce_cornellbox_render(monkeypatch):
-    """End-to-end CornellBox render through the kernel (interpreter)."""
+    """End-to-end CornellBox render through the fused bounce."""
     from rust_pathtracer_tpu.render import RenderSettings, render_radiance
 
     sd = get_scene("CornellBox")
     scene = sd.build()
     cam = sd.camera_at(0.0)
     s = RenderSettings(24, 24, 4, 8, (0.0, 0.0, 0.0))
+    _route(monkeypatch, False)
     img0, st0 = render_radiance(scene, cam, s, KEY)
-    monkeypatch.setenv("RPT_FB_INTERPRET", "1")
-    jax.clear_caches()
+    _route(monkeypatch, True)
     img1, st1 = render_radiance(scene, cam, s, KEY)
-    monkeypatch.delenv("RPT_FB_INTERPRET")
-    jax.clear_caches()
     _compare_diverging(
         np.asarray(img0).reshape(-1, 3), np.asarray(img1).reshape(-1, 3),
         st0, st1,
@@ -182,7 +195,7 @@ def test_fused_bounce_cornellbox_render(monkeypatch):
 
 
 def test_fused_bounce_regen_lighttest(monkeypatch):
-    """Regen wavefront through the fused kernel (interpreter) vs jnp:
+    """Regen wavefront through the fused bounce vs the composed path:
     LightTest-style scene (perlin ground + one-sided rect lights)."""
     from rust_pathtracer_tpu.render import RenderSettings
     from rust_pathtracer_tpu.wavefront import render_radiance_regen
@@ -191,14 +204,12 @@ def test_fused_bounce_regen_lighttest(monkeypatch):
     scene = sd.build()
     cam = sd.camera_at(0.0)
     s = RenderSettings(20, 12, 8, 12, (0.0, 0.0, 0.0))
+    _route(monkeypatch, False)
     img0, st0 = render_radiance_regen(scene, cam, s, KEY, lanes=1024,
                                       flush_every=2)
-    monkeypatch.setenv("RPT_FB_INTERPRET", "1")
-    jax.clear_caches()
+    _route(monkeypatch, True)
     img1, st1 = render_radiance_regen(scene, cam, s, KEY, lanes=1024,
                                       flush_every=2)
-    monkeypatch.delenv("RPT_FB_INTERPRET")
-    jax.clear_caches()
     _compare_diverging(
         np.asarray(img0).reshape(-1, 3), np.asarray(img1).reshape(-1, 3),
         st0, st1, max_flip_frac=0.05,
@@ -237,7 +248,6 @@ def test_fused_bounce_vjp_finite_difference(monkeypatch):
 
     from rust_pathtracer_tpu.ops.fused_bounce import _COL_KEYS
 
-    monkeypatch.setenv("RPT_FB_INTERPRET", "1")
     scene = _solid_checker_scene()
     R = 96
     o, d = _rays(R)
@@ -254,7 +264,7 @@ def test_fused_bounce_vjp_finite_difference(monkeypatch):
 
     bounce = _make_fused_bounce_vjp(
         scene.kinds_static, scene.mat_types, scene.tex_types,
-        float(T_MIN), True,
+        float(T_MIN),
     )
 
     # fixed random cotangent weights on every output
@@ -307,12 +317,10 @@ def test_fused_bounce_vjp_finite_difference(monkeypatch):
                 names[ai], i, flat[i], fd)
             checked += 1
     assert checked >= 20  # the sampling must actually exercise slots
-    monkeypatch.delenv("RPT_FB_INTERPRET")
-    jax.clear_caches()
 
 
 def test_fused_bounce_diff_matches_xla_grads(monkeypatch):
-    """End-to-end loss+grads: fused-diff (interpreter) vs the XLA diff
+    """End-to-end loss+grads: fused-diff vs the composed diff
     path on a solid/checker scene.  Same statistical caveat as the
     forward comparisons (ulp path flips), so tolerances are loose-ish
     but far below any formula error."""
@@ -333,15 +341,10 @@ def test_fused_bounce_diff_matches_xla_grads(monkeypatch):
     params = DiffParams.from_scene(scene, cam, settings.background)
     target = jnp.zeros((16, 16, 3))
 
-    monkeypatch.setenv("RPT_FUSED_BOUNCE_DIFF", "0")
-    jax.clear_caches()
+    _route(monkeypatch, False)
     loss0, g0 = render_loss_and_grad(params, scene, settings, KEY, target)
-    monkeypatch.setenv("RPT_FUSED_BOUNCE_DIFF", "1")
-    monkeypatch.setenv("RPT_FB_INTERPRET", "1")
-    jax.clear_caches()
+    _route(monkeypatch, True)
     loss1, g1 = render_loss_and_grad(params, scene, settings, KEY, target)
-    monkeypatch.delenv("RPT_FB_INTERPRET")
-    jax.clear_caches()
     np.testing.assert_allclose(float(loss1), float(loss0), rtol=2e-3)
     f0, _ = jax.flatten_util.ravel_pytree(g0)
     f1, _ = jax.flatten_util.ravel_pytree(g1)
@@ -352,7 +355,7 @@ def test_fused_bounce_diff_matches_xla_grads(monkeypatch):
 
 
 def test_fused_bounce_bf16_residuals(monkeypatch):
-    """RPT_FBD_RES=bf16 (opt-in): residual planes stored bfloat16.
+    """RPT_FBD_RES=bf16 (opt-in): residuals stored bfloat16.
     The PRIMAL loss is bitwise the f32-residual loss (residuals only
     feed the backward); gradients stay within a documented tolerance
     of the f32-residual gradients (cf. the round-3 compressed_vjp
@@ -372,16 +375,12 @@ def test_fused_bounce_bf16_residuals(monkeypatch):
     params = DiffParams.from_scene(scene, cam, settings.background)
     target = jnp.zeros((16, 16, 3))
 
-    monkeypatch.setenv("RPT_FUSED_BOUNCE_DIFF", "1")
-    monkeypatch.setenv("RPT_FB_INTERPRET", "1")
-    jax.clear_caches()
+    _route(monkeypatch, True)
     loss0, g0 = render_loss_and_grad(params, scene, settings, KEY, target)
     monkeypatch.setenv("RPT_FBD_RES", "bf16")
     jax.clear_caches()
     loss1, g1 = render_loss_and_grad(params, scene, settings, KEY, target)
     monkeypatch.delenv("RPT_FBD_RES")
-    monkeypatch.delenv("RPT_FB_INTERPRET")
-    jax.clear_caches()
     # primal identical: residuals are a backward-only artifact
     np.testing.assert_array_equal(float(loss1), float(loss0))
     f0, _ = jax.flatten_util.ravel_pytree(g0)
@@ -397,7 +396,7 @@ def test_fused_bounce_bf16_residuals(monkeypatch):
 def test_fused_scan_vjp_matches_jax_transpose(monkeypatch, rr):
     """Whole-scan custom VJP (RPT_FBD_SCAN=vjp, the default) vs jax's
     lax.scan transpose over the per-bounce VJP (=jax): the primal loss
-    is BITWISE identical (same kernel scan, incl. roulette + stats)
+    is BITWISE identical (same fused scan, incl. roulette + stats)
     and gradients agree to ulp-level accumulation noise (the roulette
     cond transpose and carry marshalling round differently)."""
     from rust_pathtracer_tpu.grad import (
@@ -418,15 +417,12 @@ def test_fused_scan_vjp_matches_jax_transpose(monkeypatch, rr):
                               russian_roulette_start=rr)
     params = DiffParams.from_scene(scene, cam, settings.background)
     target = jnp.zeros((16, 16, 3))
-    monkeypatch.setenv("RPT_FB_INTERPRET", "1")
+    _route(monkeypatch, True)
     monkeypatch.setenv("RPT_FBD_SCAN", "jax")
-    jax.clear_caches()
     l0, g0 = render_loss_and_grad(params, scene, settings, KEY, target)
     monkeypatch.setenv("RPT_FBD_SCAN", "vjp")
     jax.clear_caches()
     l1, g1 = render_loss_and_grad(params, scene, settings, KEY, target)
-    monkeypatch.delenv("RPT_FB_INTERPRET")
-    jax.clear_caches()
     assert float(l0) == float(l1)
     f0, _ = jax.flatten_util.ravel_pytree(g0)
     f1, _ = jax.flatten_util.ravel_pytree(g1)

@@ -284,25 +284,32 @@ def test_gradient_descent_recovers_albedo():
     assert np.allclose(got, [0.8, 0.3, 0.5], atol=0.03), got
 
 
-def test_diff_search_kernel_matches_jnp(monkeypatch):
-    """Diff mode may route the DETACHED hit search through the v1
-    Pallas kernel; radiance and gradients must match the jnp search
-    (idx/hit are exact between the two; t is re-derived either way)."""
-    scene = _scene_simple()
+def test_diff_search_kernel_matches_jnp():
+    """Diff mode detaches the hit SEARCH, so its route must not matter:
+    the same scene searched by the brute-force sweep and by the BVH
+    gives the same radiance and gradients (idx/hit are exact between
+    the two; t is re-derived either way)."""
+    b = SceneBuilder()
+    b.add_sphere((0.0, 0.0, -3.0), 1.0, b.lambertian((0.8, 0.3, 0.5)))
+    b.add_sphere((1.5, 0.2, -4.0), 0.8, b.metal((0.7, 0.7, 0.7), 0.1))
+    b.add_rect("xz", (-5, -1, -8), (5, -1, 2), 1.0,
+               b.lambertian((0.4, 0.5, 0.3)))
+    scene_brute = b.build(use_bvh=False)
+    scene_bvh = b.build(use_bvh=True)
+    assert scene_bvh.bvh is not None and scene_brute.bvh is None
     cam = CameraParams.create((0, 0, 1), (0, 0, -3), (0, 1, 0), 50.0, 1.0)
     settings = RenderSettings(10, 10, 4, 3, (0.8, 0.8, 1.0))
-    params = DiffParams.from_scene(scene, cam, settings.background)
 
-    monkeypatch.delenv("RPT_PROJ_INTERPRET", raising=False)
-    img_jnp = render_radiance_diff(params, scene, settings, KEY)
-    loss_jnp, g_jnp = render_loss_and_grad(
-        params, scene, settings, KEY, jnp.zeros((10, 10, 3))
-    )
-    monkeypatch.setenv("RPT_PROJ_INTERPRET", "1")  # forces kernel search
-    img_k = render_radiance_diff(params, scene, settings, KEY)
-    loss_k, g_k = render_loss_and_grad(
-        params, scene, settings, KEY, jnp.zeros((10, 10, 3))
-    )
+    def run(scene):
+        params = DiffParams.from_scene(scene, cam, settings.background)
+        img = render_radiance_diff(params, scene, settings, KEY)
+        loss, g = render_loss_and_grad(
+            params, scene, settings, KEY, jnp.zeros((10, 10, 3))
+        )
+        return img, loss, g
+
+    img_jnp, loss_jnp, g_jnp = run(scene_brute)
+    img_k, loss_k, g_k = run(scene_bvh)
     np.testing.assert_allclose(np.asarray(img_jnp), np.asarray(img_k),
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(float(loss_jnp), float(loss_k), rtol=1e-6)

@@ -170,24 +170,3 @@ def test_t_max_shrink_respected():
         1e-3, 3.0,
     )
     assert not bool(valid[0, 0])  # hit at t=4 rejected when t_max=3
-
-
-def test_chunked_brute_matches_dense():
-    from rust_pathtracer_tpu.ops.intersect import closest_hit_brute_chunked
-
-    rng = np.random.default_rng(0)
-    b = SceneBuilder()
-    m = b.lambertian((0.5, 0.5, 0.5))
-    for _ in range(700):
-        b.add_sphere(rng.uniform(-10, 10, 3), rng.uniform(0.2, 1.0), m)
-    scene = b.build(use_bvh=False)
-    o = jnp.asarray(rng.uniform(-12, 12, (512, 3)), jnp.float32)
-    d = jnp.asarray(rng.normal(size=(512, 3)), jnp.float32)
-    h1, t1, i1 = closest_hit_brute(scene.prims, o, d, 1e-3, 1e30, scene.prim_types)
-    h2, t2, i2 = closest_hit_brute_chunked(
-        scene.prims, o, d, 1e-3, 1e30, scene.prim_types, chunk=256
-    )
-    hm = np.asarray(h1)
-    assert np.array_equal(np.asarray(h1), np.asarray(h2))
-    assert np.array_equal(np.asarray(i1)[hm], np.asarray(i2)[hm])
-    assert np.allclose(np.asarray(t1)[hm], np.asarray(t2)[hm], rtol=1e-4)

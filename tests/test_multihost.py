@@ -4,7 +4,7 @@ Two host processes x two virtual CPU devices each form a global
 4-device mesh; both run the sharded renderer on the global mesh and
 must agree with the single-process result.  Exercises the real
 multi-host code path (jax.distributed.initialize + shard_map over a
-mesh spanning processes) without TPU hardware.
+mesh spanning processes) without accelerator hardware.
 """
 
 import os

@@ -128,3 +128,54 @@ def test_native_obj_normals_and_neg_indices(tmp_path):
     assert np.allclose(n[0], [0, 0.70710678, 0.70710678])
     assert np.allclose(n[1], [0, 0.70710678, 0.70710678])
     assert m.tolist() == [-1, -1] and mats == []
+
+
+def test_native_build_ignores_compiler_environment(monkeypatch):
+    """The library is built with the system g++ and fixed flags: a CXX
+    exported for another gcc builds against that gcc's libstdc++, and
+    the library crashed beside the interpreter's own."""
+    import subprocess
+
+    from rust_pathtracer_tpu import native
+
+    seen = {}
+
+    def fake_run(cmd, **kw):
+        seen["cmd"], seen["env"] = cmd, kw["env"]
+        return subprocess.CompletedProcess(cmd, 0)
+
+    monkeypatch.setenv("CXX", "/opt/other/bin/g++")
+    monkeypatch.setenv("CXXFLAGS", "-static-libstdc++")
+    monkeypatch.setattr(native.subprocess, "run", fake_run)
+    native._try_build()
+    assert seen["cmd"][:2] == ["make", "-s"]
+    assert "CXX=g++" in seen["cmd"]
+    assert any(a.startswith("CXXFLAGS=") and "-fPIC" in a
+               for a in seen["cmd"])
+    assert "CXX" not in seen["env"] and "CXXFLAGS" not in seen["env"]
+
+
+def test_native_build_rebuilds_when_flags_change(tmp_path):
+    """make rebuilds the library when the compiler or its flags change
+    (they are stamped into .build_flags), and only then."""
+    import shutil
+    import subprocess
+
+    from rust_pathtracer_tpu import native
+
+    src = tmp_path / "csrc"
+    shutil.copytree(native._CSRC, src,
+                    ignore=shutil.ignore_patterns("*.so", ".build_flags"))
+
+    def build(flags):
+        subprocess.run(["make", "-s", "CXX=g++", f"CXXFLAGS={flags}"],
+                       cwd=src, check=True, capture_output=True, timeout=180)
+        return (src / "libptnative.so").stat().st_mtime_ns
+
+    base = "-O3 -fPIC -std=c++17 -Wall"
+    t0 = build(base)
+    assert build(base) == t0
+    t1 = build("-O1 -fPIC -std=c++17 -Wall")
+    assert t1 != t0
+    assert (src / ".build_flags").read_text().strip() == (
+        "g++ -O1 -fPIC -std=c++17 -Wall")

@@ -134,28 +134,25 @@ def test_cascade_static_schedule():
 
     from rust_pathtracer_tpu.render import CascadeOverflowError
 
-    os.environ["RPT_PROJ_INTERPRET"] = "1"
-    try:
-        sd = get_scene("SphereField")
-        scene = sd.build()
-        cam = sd.camera_at(0.0)
-        s = RenderSettings(32, 18, 4, 10, (1.0, 1.0, 1.0), spp_chunk=4)
-        img0, st0 = render_radiance(scene, cam, s, jax.random.PRNGKey(0))
-        s_static = dataclasses.replace(
-            s, cascade=True, cascade_schedule="3:2,6:4"
-        )
-        img1, st1 = render_radiance(scene, cam, s_static,
-                                    jax.random.PRNGKey(0))
-        assert float(st1.segments) == float(st0.segments)
-        assert float(st1.occupancy[-1]) == 0.0
-        np.testing.assert_allclose(np.asarray(img1), np.asarray(img0),
-                                   rtol=1e-6, atol=1e-6)
-        s_tight = dataclasses.replace(s, cascade=True,
-                                      cascade_schedule="1:16")
-        with pytest.raises(CascadeOverflowError, match="dropped"):
-            render_radiance(scene, cam, s_tight, jax.random.PRNGKey(0))
-    finally:
-        os.environ.pop("RPT_PROJ_INTERPRET", None)
+    sd = get_scene("SphereField")
+    scene = sd.build()
+    assert scene.bvh is not None
+    cam = sd.camera_at(0.0)
+    s = RenderSettings(32, 18, 4, 10, (1.0, 1.0, 1.0), spp_chunk=4)
+    img0, st0 = render_radiance(scene, cam, s, jax.random.PRNGKey(0))
+    s_static = dataclasses.replace(
+        s, cascade=True, cascade_schedule="3:2,6:4"
+    )
+    img1, st1 = render_radiance(scene, cam, s_static,
+                                jax.random.PRNGKey(0))
+    assert float(st1.segments) == float(st0.segments)
+    assert float(st1.occupancy[-1]) == 0.0
+    np.testing.assert_allclose(np.asarray(img1), np.asarray(img0),
+                               rtol=1e-6, atol=1e-6)
+    s_tight = dataclasses.replace(s, cascade=True,
+                                  cascade_schedule="1:16")
+    with pytest.raises(CascadeOverflowError, match="dropped"):
+        render_radiance(scene, cam, s_tight, jax.random.PRNGKey(0))
 
 
 def test_cascade_rational_shrink():
@@ -163,15 +160,9 @@ def test_cascade_rational_shrink():
     fractional widths that integer divisors cannot reach (ModelTest's
     59%-alive bounce 1).  Still estimator-exact: image equals the
     plain chunked renderer, overflow stays zero, and the parser
-    rejects malformed or non-increasing rationals.
-
-    RPT_PROJ_INTERPRET is pinned for both renders: the 32x18 SF
-    programs may already sit in the jit cache traced under interpret
-    routing (test_cascade_static_schedule above), and interpret-vs-v4
-    t values differ in ulps — enough to steer paths apart, which is a
-    routing artifact, not a cascade bug."""
+    rejects malformed or non-increasing rationals.  SphereField
+    searches through its BVH."""
     import dataclasses
-    import os
 
     import pytest
 
@@ -189,25 +180,21 @@ def test_cascade_rational_shrink():
     with pytest.raises(ValueError):
         parse_cascade_schedule("1:8/7,2:9/8")  # shrinks must increase
 
-    os.environ["RPT_PROJ_INTERPRET"] = "1"
-    try:
-        sd = get_scene("SphereField")
-        scene = sd.build()
-        cam = sd.camera_at(0.0)
-        s = RenderSettings(32, 18, 4, 10, (1.0, 1.0, 1.0), spp_chunk=4)
-        img0, st0 = render_radiance(scene, cam, s, jax.random.PRNGKey(0))
-        # lanes = 2304; width at 8/7 = 2016 (87.5%, safe over ~68%
-        # alive after bounce 0), at 6:4 = 576 (25%, same slot as the
-        # test above)
-        s1 = dataclasses.replace(s, cascade=True,
-                                 cascade_schedule="1:8/7,6:4")
-        img1, st1 = render_radiance(scene, cam, s1, jax.random.PRNGKey(0))
-        assert float(st1.segments) == float(st0.segments)
-        assert float(st1.occupancy[-1]) == 0.0
-        np.testing.assert_allclose(np.asarray(img1), np.asarray(img0),
-                                   rtol=1e-6, atol=1e-6)
-    finally:
-        os.environ.pop("RPT_PROJ_INTERPRET", None)
+    sd = get_scene("SphereField")
+    scene = sd.build()
+    cam = sd.camera_at(0.0)
+    s = RenderSettings(32, 18, 4, 10, (1.0, 1.0, 1.0), spp_chunk=4)
+    img0, st0 = render_radiance(scene, cam, s, jax.random.PRNGKey(0))
+    # lanes = 2304; width at 8/7 = 2016 (87.5%, safe over ~68%
+    # alive after bounce 0), at 6:4 = 576 (25%, same slot as the
+    # test above)
+    s1 = dataclasses.replace(s, cascade=True,
+                             cascade_schedule="1:8/7,6:4")
+    img1, st1 = render_radiance(scene, cam, s1, jax.random.PRNGKey(0))
+    assert float(st1.segments) == float(st0.segments)
+    assert float(st1.occupancy[-1]) == 0.0
+    np.testing.assert_allclose(np.asarray(img1), np.asarray(img0),
+                               rtol=1e-6, atol=1e-6)
 
 
 def test_cascade_static_multi_chunk():
@@ -321,40 +308,33 @@ def test_cascade_auto_overflow_widens(monkeypatch):
                                rtol=1e-6, atol=1e-6)
 
 
-def test_cascade_passset_key_matches_octant_key(monkeypatch):
-    """RPT_REORDER_KEY selects only the wavefront LAYOUT (pass-set
-    bitmask sort vs the (cluster, octant) proxy); per-lane radiance is
-    layout-independent, so the cascade image must be identical under
-    both keys — including a width-preserving "1:1" pseudo-boundary,
-    whose only job is the coherence re-sort before bounce 1."""
+def test_cascade_passset_key_matches_octant_key():
+    """A width-preserving "1:1" pseudo-boundary only re-sorts the
+    wavefront (live lanes first); per-lane radiance is layout-
+    independent, so the cascade image equals the plain chunked
+    renderer with or without it (SphereField through its BVH)."""
     import dataclasses
 
-    import jax
-    import numpy as np
-
-    monkeypatch.setenv("RPT_PROJ_INTERPRET", "1")
     sd = get_scene("SphereField")
     scene = sd.build()
     cam = sd.camera_at(0.0)
     s = RenderSettings(32, 18, 4, 10, (1.0, 1.0, 1.0), spp_chunk=4,
                        cascade=True, cascade_schedule="1:1,3:2,6:4")
     imgs = {}
-    for key in ("passset", "octant"):
-        monkeypatch.setenv("RPT_REORDER_KEY", key)
-        # the env is read at trace time and the cascade jit is keyed
-        # only on shapes/statics — clear caches so the second key
-        # actually retraces (the vacuous-test trap of DESIGN §10)
-        jax.clear_caches()
-        img, st = render_radiance(scene, cam, s, jax.random.PRNGKey(0))
+    for sched in ("1:1,3:2,6:4", "3:2,6:4"):
+        img, st = render_radiance(
+            scene, cam, dataclasses.replace(s, cascade_schedule=sched),
+            jax.random.PRNGKey(0),
+        )
         assert float(st.occupancy[-1]) == 0.0
-        imgs[key] = np.asarray(img)
-    np.testing.assert_array_equal(imgs["passset"], imgs["octant"])
+        imgs[sched] = np.asarray(img)
+    np.testing.assert_allclose(imgs["1:1,3:2,6:4"], imgs["3:2,6:4"],
+                               rtol=1e-6, atol=1e-6)
 
     # and both equal the plain chunked renderer
-    monkeypatch.delenv("RPT_REORDER_KEY", raising=False)
     s0 = dataclasses.replace(s, cascade=False, cascade_schedule=None)
     img0, _ = render_radiance(scene, cam, s0, jax.random.PRNGKey(0))
-    np.testing.assert_allclose(imgs["passset"], np.asarray(img0),
+    np.testing.assert_allclose(imgs["1:1,3:2,6:4"], np.asarray(img0),
                                rtol=1e-6, atol=1e-6)
 
 

@@ -55,28 +55,3 @@ def test_refract_snell():
 def test_near_zero():
     assert bool(vm.near_zero(jnp.array([1e-9, -1e-9, 0.0])))
     assert not bool(vm.near_zero(jnp.array([1e-9, 1e-7, 0.0])))
-
-
-def test_roofline_model_sanity():
-    """The roofline model must produce positive SOL times, identify a
-    binding resource, and scale linearly in lanes."""
-    from rust_pathtracer_tpu.models import get_scene
-    from rust_pathtracer_tpu.utils.metrics import (
-        bounce_roofline, roofline_report,
-    )
-
-    scene = get_scene("CornellBox").build()
-    stages = bounce_roofline(scene, 1 << 20)
-    assert {s.name for s in stages} == {"v1 sweep", "shade+record"}
-    rep = roofline_report(scene, 1 << 20, bounces=7.0,
-                          measured_seconds=0.1, backward=True)
-    assert 0.0 < rep["sol_seconds"] < 0.1
-    assert 0.0 < rep["sol_fraction"] < 1.0
-    assert rep["bound"].split(":")[1] in ("MXU", "VPU", "HBM")
-    rep2 = roofline_report(scene, 1 << 21, bounces=7.0,
-                           measured_seconds=0.2, backward=True)
-    assert abs(rep2["sol_seconds"] / rep["sol_seconds"] - 2.0) < 1e-6
-
-    big = get_scene("SphereField").build()
-    st2 = bounce_roofline(big, 1 << 20, swept_fraction=0.1, reorder=True)
-    assert {s.name for s in st2} == {"v2 sweep", "reorder", "shade+record"}

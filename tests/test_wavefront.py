@@ -88,17 +88,16 @@ def test_regen_pool_larger_than_queue():
     assert np.abs(np.asarray(a) - np.asarray(b)).max() < 5e-3
 
 
-def test_regen_reorder_matches_chunked(monkeypatch):
-    """Regen with cluster reordering (projected interpret path) must
-    keep the estimator identical to the chunked renderer."""
+def test_regen_reorder_matches_chunked():
+    """Regen on a large scene searched through its BVH must keep the
+    estimator identical to the chunked renderer."""
     import numpy as np
     from rust_pathtracer_tpu.render import RenderSettings, render_radiance
     from rust_pathtracer_tpu.wavefront import render_radiance_regen
     from tests.test_integrator import _cluster_scene
 
-    monkeypatch.setenv("RPT_PROJ_INTERPRET", "1")
-    monkeypatch.setenv("RPT_BIN", "1")
-    scene = _cluster_scene(600)
+    scene = _cluster_scene(600, use_bvh=True)
+    assert scene.bvh is not None
     from rust_pathtracer_tpu.camera import make_camera
 
     cam = make_camera((0, 0, 30), (0, 0, 0), (0, 1, 0), 45.0, 1.0, 0.0, 10.0)
@@ -108,8 +107,7 @@ def test_regen_reorder_matches_chunked(monkeypatch):
                                         lanes=1024, flush_every=3)
     a, b = np.asarray(img_c), np.asarray(img_r)
     # a handful of ulp-divergent paths between the two compiled
-    # programs (projected interpret t differs by <=2 ulp; same
-    # tolerance as test_regen_matches_chunked)
+    # programs (same tolerance as test_regen_matches_chunked)
     assert abs(float(st_c.segments) - float(st_r.segments)) <= (
         0.001 * float(st_c.segments)
     )
@@ -166,14 +164,14 @@ def test_regen_occupancy_histogram():
 
 
 def test_regen_fused_finished_lane_state_never_consumed(monkeypatch):
-    """The fused kernel commits o/d/thr for lanes that scatter at the
+    """The fused bounce commits o/d/thr for lanes that scatter at the
     depth cap (cont_k true, depth_ok false), unlike the composed branch
     which leaves finished-lane state untouched.  That is correct ONLY
     while finished-lane state is never read again (flush consumes
     rad+work; respawn overwrites) — this test pins that invariant
-    (round-4 ADVICE): with max_bounces=1 EVERY scattering lane is
-    depth-capped, so poisoning the kernel's committed o/d/thr with NaN
-    on every lane must leave the image bitwise unchanged.  Any future
+    with max_bounces=1 EVERY scattering lane is depth-capped, so
+    poisoning the fused bounce's committed o/d/thr with NaN on every
+    lane must leave the image bitwise unchanged.  Any future
     flush/debug path that reads finished-lane thr (or o/d) turns the
     poison into a NaN image here."""
     import jax.numpy as jnp
@@ -184,8 +182,7 @@ def test_regen_fused_finished_lane_state_never_consumed(monkeypatch):
     scene = sd.build()
     cam = sd.camera_at(0.0)
     s = RenderSettings(16, 10, 6, 1, (0.0, 0.0, 0.0))
-    monkeypatch.setenv("RPT_FB_INTERPRET", "1")
-    jax.clear_caches()
+    assert fb.fused_bounce_ok(scene)
     img0, st0 = render_radiance_regen(scene, cam, s, KEY, lanes=256,
                                       flush_every=2)
     real_apply = fb.fused_bounce_apply
@@ -199,7 +196,6 @@ def test_regen_fused_finished_lane_state_never_consumed(monkeypatch):
     jax.clear_caches()
     img1, st1 = render_radiance_regen(scene, cam, s, KEY, lanes=256,
                                       flush_every=2)
-    monkeypatch.delenv("RPT_FB_INTERPRET")
     jax.clear_caches()
     np.testing.assert_array_equal(np.asarray(img0), np.asarray(img1))
     assert float(st0.segments) == float(st1.segments)
